@@ -1,0 +1,242 @@
+"""Public one-call API: compress / decompress on the card.
+
+Every entry point takes ``device="cuda"`` by default and runs the WORD
+kernels there.  ``device="cpu"`` runs the kernels' plain PyTorch versions
+instead; that is the only way onto the CPU: with no CUDA device the default
+raises, and a kernel that fails to build or launch raises.
+
+For the same input and ``RansConfig`` the containers are byte-identical to
+the reference package's ``compress(data, backend="numpy")``: the same
+model (main.cpp:49-129), the same padding with the most frequent symbol,
+the same raw-block rule and the same per-block CRC.
+
+Each phase runs inside a ``torch.profiler.record_function`` span named
+``rans.<phase>`` (model, encode, raw, crc, pack, unpack, decode, fetch), so
+a profiler trace splits a call's wall time by phase; with no profiler
+running a span costs about a microsecond.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .config import RansConfig
+from .models import stats
+from .ops import word
+from .utils import container as cont
+from .utils.log import backend_choice, container_summary
+
+_WORD_BYTES = 2  # WORD stream words are u16
+
+
+def _device(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels")
+    elif d.type != "cpu":
+        raise ValueError(f"unsupported device {d}")
+    return d
+
+
+def _as_u8(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(bytearray(data), np.uint8)
+    arr = np.ascontiguousarray(data, np.uint8).reshape(-1)
+    return arr if arr.flags.writeable else arr.copy()
+
+
+def _block_slices(cfg: RansConfig, padded_len: int):
+    off = 0
+    for size in word.block_sizes(cfg.block_symbols, padded_len):
+        yield off, size
+        off += size
+
+
+def _model(t: torch.Tensor, prob_bits: int):
+    """Histogram where the data lies (one 256-count fetch), then the exact
+    sequential normalization on the host."""
+    counts = torch.bincount(t, minlength=256).cpu().numpy()
+    return stats.build_model_from_counts(counts, prob_bits)
+
+
+def _encode_container(cfg: RansConfig, t: torch.Tensor,
+                      host: np.ndarray | None) -> bytes:
+    """Encode flat uint8 ``t``; raw blocks and CRCs take their bytes from
+    ``host`` (the same data on the host) or, when None, fetch a raw block's
+    bytes from ``t``."""
+    S = t.numel()
+    with record_function("rans.model"):
+        freqs, cum = _model(t, cfg.prob_bits)
+    with record_function("rans.encode"):
+        padded = word.pad_block(t, cfg.n_lanes, freqs)
+        payloads = [[w] for w in word.encode(cfg, padded, freqs, cum)]
+
+    # raw-block fallback (rans_byte.h:28-35): store a block verbatim when
+    # coding would not shrink it
+    raw = np.zeros(len(payloads), bool)
+    slices = list(_block_slices(cfg, padded.numel()))
+    with record_function("rans.raw"):
+        for b, (off, size) in enumerate(slices):
+            end = min(off + size, S)
+            if payloads[b][0].size * _WORD_BYTES >= end - off:
+                raw[b] = True
+                payloads[b] = [host[off:end].copy() if host is not None
+                               else t[off:end].cpu().numpy()]
+
+    crcs = None
+    if cfg.checksum:
+        with record_function("rans.crc"):
+            crcs = np.array([cont.crc32(host[off:min(off + size, S)])
+                             for off, size in slices], np.uint32)
+    with record_function("rans.pack"):
+        blob = cont.pack(cfg, S, freqs, payloads, crcs,
+                         raw if raw.any() else None)
+    container_summary(S, len(blob), len(payloads))
+    return blob
+
+
+def compress(data, cfg: RansConfig | None = None,
+             device="cuda") -> bytes:
+    """Compress bytes / a uint8 array -> TRNS container bytes.
+
+    With no ``cfg`` the shape adapts to the input size (RansConfig.auto).
+    The data goes to ``device`` once; histogram, padding, encode and
+    compaction run there."""
+    dev = _device(device)
+    data = _as_u8(data)
+    cfg = cfg or RansConfig.auto(data.size)
+    if data.size == 0:
+        return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
+    word.check_config(cfg)
+    backend_choice(cfg, str(device), str(dev))
+    return _encode_container(cfg, torch.from_numpy(data).to(dev), data)
+
+
+def compress_from_device(t: torch.Tensor,
+                         cfg: RansConfig | None = None) -> bytes:
+    """Compress a uint8 tensor where it lies -> TRNS container bytes,
+    byte-identical to ``compress(t.cpu().numpy(), cfg)``.
+
+    The host receives the 256-bin histogram and the compacted words.  CRCs
+    cover the original bytes, which never visit the host here, so ``cfg``
+    must have ``checksum=False`` (the default cfg does).  A block that does
+    not shrink is still stored raw: only its bytes are fetched."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+        raise TypeError("compress_from_device takes a uint8 torch.Tensor")
+    _device(t.device)
+    t = t.reshape(-1)
+    if cfg is None:
+        cfg = dataclasses.replace(RansConfig.auto(t.numel()), checksum=False)
+    if cfg.checksum:
+        raise ValueError("compress_from_device requires checksum=False "
+                         "(CRCs cover host-side original bytes)")
+    if t.numel() == 0:
+        return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
+    word.check_config(cfg)
+    return _encode_container(cfg, t.contiguous(), None)
+
+
+def _decode_container(c: cont.Container, dev: torch.device) -> torch.Tensor:
+    """All blocks of an unpacked container -> flat uint8 [orig_len]."""
+    cfg = c.cfg
+    word.check_config(cfg)
+    sizes = c.block_sizes()
+    if len(c.payloads) != len(sizes):
+        raise ValueError("container corrupt: block count does not match "
+                         "orig_len")
+    raw = c.raw if c.raw is not None else np.zeros(len(sizes), bool)
+    coded = [i for i in range(len(sizes)) if not raw[i]]
+    cum = stats.calc_cum_freqs(c.freqs)
+    with record_function("rans.decode"):
+        dec = word.decode(cfg, [c.payloads[i][0] for i in coded],
+                          [sizes[i] for i in coded], c.freqs, cum, dev)
+    if not raw.any():
+        return dec[:c.orig_len]
+    pieces, pos = [], 0
+    for i, size in enumerate(sizes):
+        if raw[i]:
+            # stored verbatim and unpadded: zero-pad to the padded size
+            b = np.asarray(c.payloads[i][0], np.uint8)
+            if b.size > size:
+                raise ValueError("container corrupt: raw block larger "
+                                 "than its block")
+            piece = torch.zeros(size, dtype=torch.uint8, device=dev)
+            piece[:b.size] = torch.from_numpy(b.copy()).to(dev)
+            pieces.append(piece)
+        else:
+            pieces.append(dec[pos:pos + size])
+            pos += size
+    return torch.cat(pieces)[:c.orig_len]
+
+
+def _check_crc(c: cont.Container, block: int, data: np.ndarray) -> None:
+    if c.crcs is not None and cont.crc32(data) != int(c.crcs[block]):
+        raise ValueError(f"crc mismatch in block {block}")
+
+
+def decompress(blob, device="cuda") -> bytes:
+    """Decompress a TRNS container -> original bytes, checking the
+    per-block CRCs on the host."""
+    dev = _device(device)
+    with record_function("rans.unpack"):
+        c = cont.unpack(blob)
+    if c.orig_len == 0:
+        return b""
+    backend_choice(c.cfg, str(device), str(dev))
+    dec = _decode_container(c, dev)
+    with record_function("rans.fetch"):
+        out = dec.cpu().numpy()
+    B = c.cfg.block_symbols
+    with record_function("rans.crc"):
+        for b in range(len(c.block_sizes())):
+            off = b * B
+            _check_crc(c, b, out[off:off + B])
+    return out.tobytes()
+
+
+def decompress_to_device(blob, device="cuda") -> torch.Tensor:
+    """Decode a TRNS container into a uint8 tensor on ``device``.
+
+    The container is parsed on the host, the words go to the device once,
+    and the symbols stay there.  CRC contract: per-block CRCs cover the
+    original bytes, which never visit the host here, so they are NOT
+    checked; use decompress() for that, or CRC the tensor after use."""
+    dev = _device(device)
+    with record_function("rans.unpack"):
+        c = cont.unpack(blob)
+    if c.orig_len == 0:
+        return torch.empty(0, dtype=torch.uint8, device=dev)
+    return _decode_container(c, dev)
+
+
+def decompress_block(blob, block: int, device="cuda") -> bytes:
+    """Random-access decode of ONE block of a TRNS container -> that
+    block's original bytes (the last block may be short), CRC-checked."""
+    dev = _device(device)
+    c = cont.unpack(blob)
+    cfg = c.cfg
+    word.check_config(cfg)
+    sizes = c.block_sizes()
+    if len(c.payloads) != len(sizes):
+        raise ValueError("container corrupt: block count does not match "
+                         "orig_len")
+    if not 0 <= block < len(sizes):
+        raise IndexError(f"block {block} out of range [0, {len(sizes)})")
+    off = block * cfg.block_symbols
+    end = min(off + sizes[block], c.orig_len)
+    payload = c.payloads[block][0]
+    if c.raw is not None and c.raw[block]:
+        out = np.asarray(payload, np.uint8)
+    else:
+        cum = stats.calc_cum_freqs(c.freqs)
+        out = word.decode(cfg, [payload], [sizes[block]], c.freqs, cum,
+                          dev)[:end - off].cpu().numpy()
+    _check_crc(c, block, out)
+    return out.tobytes()
