@@ -5,21 +5,30 @@
 
 Phases, each fatal on failure:
 
-1. build the WORD kernels (``csrc/*.cu``) with nvcc for sm_90a;
+1. build all six kernels (``csrc/*.cu``) with nvcc for sm_90a, in parallel;
 2. hold each kernel against its plain PyTorch version on the card, by exact
-   equality of cells, states and symbols, launch group by launch group: at
-   the main path's shapes (16384 lanes, prob_bits 11, eight 2^23-symbol
-   blocks and a tail block), at prob_bits 12 with 1024 lanes, and on a
-   prob_bits-15 one-symbol input;
-3. drive the main path through the user entry points on a seeded skewed
-   input of 64 MiB plus a tail (8 full blocks and a tail block):
-   ``compress`` -> ``decompress`` byte-exact, the container equal to the one
-   ``device="cpu"`` writes, then ``decompress_to_device`` and
-   ``compress_from_device`` on the same container and data; launch counts
-   are zeroed just before and read just after;
-4. time each kernel (CUDA events) and its plain version at the main path's
-   shapes, and the warm wall time of each entry point; then trace one
-   ``compress`` and one ``decompress`` with torch.profiler.
+   equality of cells, states and symbols, launch group by launch group.
+   WORD (K1/K2): at the main path's shapes (16384 lanes, prob_bits 11,
+   eight 2^23-symbol blocks and a tail block), at prob_bits 12 with 1024
+   lanes, and on a prob_bits-15 one-symbol input.  BYTE/ALIAS (K3/K4) and
+   RANS64 (K5/K6): at their full-width auto shapes (16384 lanes, 2^23-symbol
+   blocks, BYTE prob_bits 14, ALIAS 16, RANS64 14 and 31; four full blocks
+   and a tail), at BYTE prob_bits 16 (the 64 KB cum2sym), at RANS64
+   prob_bits 24 and on a prob_bits-31 one-symbol input, on an ALIAS model
+   whose slot adjusts wrap, and at prob_bits 12 with 1024 lanes;
+3. drive each variant's path through the user entry points on seeded skewed
+   input: WORD on 64 MiB plus a tail (8 full blocks and a tail block) with
+   no config, BYTE, ALIAS and RANS64 on 32 MiB plus a tail (4 full blocks
+   and a tail block) at ``RansConfig.auto(n, variant)``.  ``compress`` ->
+   ``decompress`` byte-exact, the container equal to the one ``device="cpu"``
+   writes, then ``decompress_to_device`` and ``compress_from_device`` (and,
+   for the new variants, ``decompress_block``) on the same container and
+   data; all launch counts are zeroed just before each path and read just
+   after it;
+4. time each kernel (CUDA events) and its plain version on the full-block
+   launch group of its path, and the warm wall time of each entry point of
+   each path; then trace one WORD ``compress`` and ``decompress`` with
+   torch.profiler.
 
 It prints the card's name and power limit, the measurements, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -45,6 +54,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 
 MAIN_LEN = (64 << 20) + 1_234_567  # 8 full 2^23 blocks + a tail block
+NEW_LEN = (32 << 20) + 1_234_567   # 4 full 2^23 blocks + a tail block
 
 
 def skewed(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -141,6 +151,188 @@ def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
     return worst
 
 
+class Codec:
+    """Uniform calls into ops.byte (BYTE, ALIAS) or ops.rans64 (RANS64)."""
+
+    def __init__(self, ops, host_prep, cfg, freqs, cum, dev):
+        import torch
+
+        self.variant = cfg.variant.name
+        self.mod = ops.rans64 if self.variant == "RANS64" else ops.byte
+        self.N, self.pb = cfg.n_lanes, cfg.prob_bits
+        f, st = (torch.from_numpy(a).to(dev)
+                 for a in host_prep.enc_tables(freqs, cum))
+        if self.variant == "RANS64":
+            self.enc_tabs = (f, st)
+            self.head_units = 2 * self.N  # u32 words
+        else:
+            remap = (torch.from_numpy(host_prep.alias_remap(
+                freqs, cum, self.pb)).to(dev)
+                if self.variant == "ALIAS" else None)
+            self.enc_tabs = (f, st, remap)
+            self.head_units = 4 * self.N  # bytes
+        self.dec_tabs = self.mod.dec_tables(cfg, freqs, cum, dev)
+
+    def encode(self, syms, ref=False):
+        fn = self.mod.encode_blocks_ref if ref else self.mod.encode_blocks
+        return fn(syms, *self.enc_tabs, self.N, self.pb)
+
+    def decode(self, stream, size, ref=False):
+        fn = self.mod.decode_blocks_ref if ref else self.mod.decode_blocks
+        if self.variant == "RANS64":
+            return fn(*stream, *self.dec_tabs, size, self.pb)
+        return fn(*stream, self.dec_tabs, size, self.pb,
+                  self.variant == "ALIAS")
+
+    def emitted(self, cells) -> int:
+        """Renorm units (bytes or words) the dense cells hold."""
+        if self.variant == "RANS64":
+            return int((cells != 0).sum())
+        return int(((cells >> 16) & 3).sum())
+
+
+def new_cases(RansConfig, Variant, data_main):
+    """Phase-2 shapes of the BYTE, ALIAS and RANS64 kernels."""
+    full = data_main[:NEW_LEN]
+    small = data_main[:(3 << 16) + 4567]
+    # a near-uniform model whose ALIAS slot adjusts leave [0, 2^16): the
+    # histogram of these 20000 bytes, repeated (the same model)
+    wrapped = np.tile(np.random.default_rng(3).integers(
+        0, 256, 20000, dtype=np.uint8), 10)
+    B, A, R = Variant.BYTE, Variant.ALIAS, Variant.RANS64
+
+    def cfg(v, pb, n, bs=1 << 16):
+        return RansConfig(variant=v, prob_bits=pb, n_lanes=n,
+                          block_symbols=bs)
+
+    r64 = RansConfig.auto(NEW_LEN, R)
+    return [
+        ("BYTE full width", RansConfig.auto(NEW_LEN, B), full),
+        ("ALIAS full width", RansConfig.auto(NEW_LEN, A), full),
+        ("RANS64 full width", r64, full),
+        ("RANS64 pb31 full width", dataclasses.replace(r64, prob_bits=31),
+         full),
+        ("BYTE pb16", cfg(B, 16, 4096), small),
+        ("RANS64 pb24", cfg(R, 24, 4096), small),
+        ("RANS64 pb31 one symbol", cfg(R, 31, 4096),
+         np.full(3 << 16, 0x41, np.uint8)),
+        ("ALIAS pb16 wrapped adjust", cfg(A, 16, 1024), wrapped),
+        ("BYTE pb12 1024 lanes", cfg(B, 12, 1024), small),
+        ("ALIAS pb12 1024 lanes", cfg(A, 12, 1024), small),
+        ("RANS64 pb12 1024 lanes", cfg(R, 12, 1024), small),
+    ]
+
+
+def check_new_kernels(ops, stats, host_prep, cases):
+    """Phase 2 for K3-K6: each kernel against its plain version, launch
+    group by launch group as the entry points cut the input."""
+    import torch
+
+    dev = torch.device("cuda")
+    worst = dict.fromkeys(["byte_encode", "byte_decode", "rans64_encode",
+                           "rans64_decode"], 0)
+    for label, cfg, data in cases:
+        freqs, cum = stats.build_model(data, cfg.prob_bits)
+        c = Codec(ops, host_prep, cfg, freqs, cum, dev)
+        note = ""
+        if label.startswith("ALIAS pb16 wrapped"):
+            adj = host_prep.alias_dec_tables(freqs, cum, 16)[3]
+            if not (adj.min() < 0 or adj.max() >= 1 << 16):
+                raise AssertionError("the wrapped-adjust model does not wrap")
+            note = f" slot adjust range [{adj.min()}, {adj.max()}]"
+        padded = ops.word.pad_block(torch.from_numpy(data).to(dev), c.N,
+                                    freqs)
+        sizes = ops.word.block_sizes(cfg.block_symbols, padded.numel())
+        shapes, e_enc, e_dec, pos = [], 0, 0, 0
+        for _, nb, size in ops.word.groups(sizes, c.mod.GROUP_SYMBOLS):
+            syms = padded[pos:pos + nb * size].view(nb, size)
+            pos += nb * size
+            shapes.append(f"{nb}x{size}")
+            cells, states = c.encode(syms)
+            cells_r, states_r = c.encode(syms, ref=True)
+            torch.cuda.synchronize()
+            e_enc = max(e_enc, max_abs_err(cells, cells_r),
+                        max_abs_err(states, states_r))
+            del cells, cells_r
+
+            blocks = c.mod.encode(cfg, syms.view(-1), freqs, cum)
+            stream = c.mod.prep_decode(blocks, c.N, dev)
+            out = c.decode(stream, size)
+            out_r = c.decode(stream, size, ref=True)
+            torch.cuda.synchronize()
+            e_dec = max(e_dec, max_abs_err(out, out_r),
+                        max_abs_err(out, syms))
+        print(f"kernel check {label}: {cfg.variant.name} n_lanes={c.N} "
+              f"prob_bits={c.pb} launch groups (blocks x symbols) {shapes} "
+              f"encode max_abs_err={e_enc} decode max_abs_err={e_dec} "
+              f"(tolerance 0: exact){note}", flush=True)
+        if e_enc or e_dec:
+            raise AssertionError(f"kernel disagrees with its plain version "
+                                 f"({label})")
+        stem = "rans64" if cfg.variant.name == "RANS64" else "byte"
+        worst[f"{stem}_encode"] = max(worst[f"{stem}_encode"], e_enc)
+        worst[f"{stem}_decode"] = max(worst[f"{stem}_decode"], e_dec)
+    return worst
+
+
+def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
+    """Phase 4 for K3-K6: encode and decode kernel on the full-block launch
+    group of ``cfg``'s path, their plain versions, and their bounds."""
+    import torch
+
+    N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
+    nb = data.size // B
+    S = nb * B
+    freqs, cum = stats.build_model(data, pb)
+    c = Codec(ops, host_prep, cfg, freqs, cum, "cuda")
+    syms = ops.word.pad_block(data_dev, N, freqs)[:S].view(nb, B)
+    enc_ms = cuda_ms(lambda: c.encode(syms), 20)
+    enc_plain_ms = cuda_ms(lambda: c.encode(syms, ref=True), 1)
+    cells, _ = c.encode(syms)
+    emitted = c.emitted(cells)
+    del cells
+    blocks = c.mod.encode(cfg, syms.view(-1), freqs, cum)
+    stream = c.mod.prep_decode(blocks, N, "cuda")
+    dec_ms = cuda_ms(lambda: c.decode(stream, B), 20)
+    dec_plain_ms = cuda_ms(lambda: c.decode(stream, B, ref=True), 1)
+    # one block is one CTA, as for K1: compare one block's time with nb's
+    stream1 = c.mod.prep_decode(blocks[:1], N, "cuda")
+    dec1_ms = cuda_ms(lambda: c.decode(stream1, B), 20)
+    units = sum(int(b.size) for b in blocks)
+    M = 1 << pb
+    # bytes: symbols in, dense cells and states out, tables in (decode:
+    # the stream in, symbols out, tables in).  ops: per symbol, encode
+    # compares, shifts, divides, takes the modulo and adds (7), decode
+    # masks, shifts, multiplies, adds, subtracts and compares (7; ALIAS
+    # adds a shift, a compare and an add for the bucket half, RANS64 above
+    # prob_bits 16 an 8-step search of a compare and an add each); 2 per
+    # renorm unit (mask or shift, shift or or)
+    if c.variant == "RANS64":
+        wb, cell_b, state_b = 4, 8, 8
+        enc_tab = 2 * 256 * 4
+        dec_tab = (256 + 257) * 4 + (M if pb <= 16 else 0)
+        dec_ops = 7 + (16 if pb > 16 else 0)
+    else:
+        wb, cell_b, state_b = 1, 4, 4
+        enc_tab = 2 * 256 * 4 + (2 * M if c.variant == "ALIAS" else 0)
+        dec_tab = ((256 + 3 * 512) * 4 if c.variant == "ALIAS"
+                   else M + 2 * 256 * 4)
+        dec_ops = 10 if c.variant == "ALIAS" else 7
+    enc_bound = bound_ms(S * (1 + cell_b) + nb * N * state_b + enc_tab,
+                         7 * S + 2 * emitted)
+    renorms = units - nb * c.head_units
+    dec_bound = bound_ms(S + wb * units + dec_tab, dec_ops * S + 2 * renorms)
+    print(f"{c.variant} prob_bits {pb}: encode kernel {enc_ms:.4f} ms "
+          f"({S / enc_ms / 1e6:.3f} GB/s), plain {enc_plain_ms:.2f} ms, "
+          f"bound {enc_bound[0]:.4f} ms ({enc_bound[1]}); decode kernel "
+          f"{dec_ms:.4f} ms ({S / dec_ms / 1e6:.3f} GB/s), plain "
+          f"{dec_plain_ms:.2f} ms, bound {dec_bound[0]:.4f} ms "
+          f"({dec_bound[1]}) [{nb} blocks x {B} symbols, {N} lanes]; "
+          f"decode kernel on 1 block (1 CTA) {dec1_ms:.4f} ms", flush=True)
+    return {"enc": (enc_ms, enc_plain_ms, enc_bound),
+            "dec": (dec_ms, dec_plain_ms, dec_bound)}
+
+
 def profile(out_dir: Path, calls: dict) -> None:
     """End of phase 4: one warm call of each entry point under torch.profiler.
     Prints the wall time, the device-busy share (the summed device time of
@@ -198,10 +390,11 @@ def main(argv=None) -> int:
         return 1
 
     import ryg_rans_tpu_torch as rt
-    from ryg_rans_tpu_torch import _kernels
+    from ryg_rans_tpu_torch import _kernels, ops
     from ryg_rans_tpu_torch.config import RansConfig
     from ryg_rans_tpu_torch.models import stats
-    from ryg_rans_tpu_torch.ops import host_prep
+    from ryg_rans_tpu_torch.config import Variant
+    from ryg_rans_tpu_torch.ops import byte, host_prep, rans64
     from ryg_rans_tpu_torch.ops import word as rt_word
     from ryg_rans_tpu_torch.utils import container as cont
 
@@ -239,6 +432,8 @@ def main(argv=None) -> int:
 
     # -- phase 2: kernels against their plain versions ------------------------
     worst = check_kernels(rt_word, stats, host_prep, RansConfig, data)
+    worst.update(check_new_kernels(ops, stats, host_prep,
+                                   new_cases(RansConfig, Variant, data)))
 
     # -- phase 3: the main path through the user entry points ----------------
     cfg = RansConfig.auto(data.size)
@@ -289,6 +484,60 @@ def main(argv=None) -> int:
           f"({bpb:.4f} bits/byte); device='cpu' container identical "
           f"(cpu compress {t_cpu:.2f} s)", flush=True)
 
+    # the BYTE, ALIAS and RANS64 paths, each with the counts zeroed before
+    # it and read after it
+    counters = {"word_encode": rt_word.encode_blocks,
+                "word_decode": rt_word.decode_blocks,
+                "byte_encode": byte.encode_blocks,
+                "byte_decode": byte.decode_blocks,
+                "rans64_encode": rans64.encode_blocks,
+                "rans64_decode": rans64.decode_blocks}
+    data_new = data[:NEW_LEN]
+    data_new_dev = data_dev[:NEW_LEN]
+    new_paths = {}
+    for name in ("BYTE", "ALIAS", "RANS64"):
+        vcfg = RansConfig.auto(NEW_LEN, Variant[name])
+        vnocrc = dataclasses.replace(vcfg, checksum=False)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        vblob = rt.compress(data_new, vcfg)
+        vrestored = rt.decompress(vblob)
+        von_card = rt.decompress_to_device(vblob)
+        vblob_dev = rt.compress_from_device(data_new_dev, vnocrc)
+        vblock = rt.decompress_block(vblob, 1)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        stem = "rans64" if name == "RANS64" else "byte"
+        print(f"{name} path: cfg={vcfg} launches={counts}", flush=True)
+        if vrestored != data_new.tobytes():
+            raise AssertionError(f"{name}: decompress(compress(data)) != data")
+        if not torch.equal(von_card, data_new_dev):
+            raise AssertionError(f"{name}: decompress_to_device != data")
+        B = vcfg.block_symbols
+        if vblock != data_new[B:2 * B].tobytes():
+            raise AssertionError(f"{name}: decompress_block(blob, 1) != "
+                                 "its block")
+        if vblob_dev != rt.compress(data_new, vnocrc):
+            raise AssertionError(f"{name}: compress_from_device differs "
+                                 "from compress")
+        t0 = time.perf_counter()
+        vblob_cpu = rt.compress(data_new, vcfg, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        if vblob_cpu != vblob:
+            raise AssertionError(f"{name}: container differs from the "
+                                 "device='cpu' one")
+        if min(counts[f"{stem}_encode"], counts[f"{stem}_decode"]) < 1:
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{counts}")
+        print(f"{name} round trip ok: {data_new.size} bytes -> {len(vblob)} "
+              f"bytes ({8 * len(vblob) / data_new.size:.4f} bits/byte); "
+              f"device='cpu' container identical (cpu compress "
+              f"{t_cpu:.2f} s)", flush=True)
+        new_paths[name] = (vcfg, vnocrc, vblob, counts)
+        launches.update({k: launches.get(k, 0) + v for k, v in counts.items()
+                         if k.startswith(stem)})
+
     # -- phase 4: timing -------------------------------------------------------
     def wall(fn, reps=7):
         """Median and min of ``reps`` warm calls, in seconds."""
@@ -311,6 +560,20 @@ def main(argv=None) -> int:
         print(f"{name} wall median {med * 1e3:.3f} ms ({gb / med:.4f} GB/s), "
               f"min {low * 1e3:.3f} ms [7 warm calls, host clock around "
               f"synchronize, {data.size} bytes]", flush=True)
+    gb_new = data_new.size / 1e9
+    for vname, (vcfg, vnocrc, vblob, _) in new_paths.items():
+        for name, fn in [
+                ("compress", lambda: rt.compress(data_new, vcfg)),
+                ("decompress", lambda: rt.decompress(vblob)),
+                ("compress_from_device",
+                 lambda: rt.compress_from_device(data_new_dev, vnocrc)),
+                ("decompress_to_device",
+                 lambda: rt.decompress_to_device(vblob))]:
+            med, low = wall(fn)
+            print(f"{vname} {name} wall median {med * 1e3:.3f} ms "
+                  f"({gb_new / med:.4f} GB/s), min {low * 1e3:.3f} ms "
+                  f"[7 warm calls, host clock around synchronize, "
+                  f"{data_new.size} bytes]", flush=True)
 
     # kernels at the main path's full-block group: 8 blocks of 2^23
     N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
@@ -364,6 +627,17 @@ def main(argv=None) -> int:
           f"decode kernel on 1 block (1 CTA) {dec1_ms:.4f} ms",
           flush=True)
 
+    # K3/K4 on the BYTE and the ALIAS path, K5/K6 on the RANS64 path (the
+    # kernels line gives BYTE and RANS64 prob_bits 14), and RANS64 at
+    # prob_bits 31, where the decoder searches instead of a table lookup
+    times = {name: time_new_kernels(ops, stats, host_prep, vcfg, data_new,
+                                    data_new_dev)
+             for name, (vcfg, *_) in new_paths.items()}
+    time_new_kernels(ops, stats, host_prep,
+                     dataclasses.replace(new_paths["RANS64"][0],
+                                         prob_bits=31),
+                     data_new, data_new_dev)
+
     profile(out_dir, {"compress": lambda: rt.compress(data),
                       "decompress": lambda: rt.decompress(blob)})
 
@@ -383,6 +657,23 @@ def main(argv=None) -> int:
          "plain_ms": dec_plain_ms, "bound_ms": dec_bound[0],
          "bound_by": dec_bound[1], "library_ms": None},
     ]
+    for name, path, src, line, key in [
+            ("byte_encode", "BYTE", "byte_encode.cu", "byte_tpu.py:418",
+             "enc"),
+            ("byte_decode", "BYTE", "byte_decode.cu", "byte_tpu.py:215",
+             "dec"),
+            ("rans64_encode", "RANS64", "rans64_encode.cu",
+             "rans64_tpu.py:369", "enc"),
+            ("rans64_decode", "RANS64", "rans64_decode.cu",
+             "rans64_tpu.py:141", "dec")]:
+        ms, plain, (bound, by) = times[path][key]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"ryg_rans_tpu_torch/csrc/{src}",
+             "replaces": f"ryg_rans_tpu/ops/{line}",
+             "launches": launches[name], "max_abs_err": worst[name],
+             "ms": ms, "plain_ms": plain, "bound_ms": bound,
+             "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles on first use, with ``nvcc`` for
 ``sm_90a``, into a shared library with a plain C interface that ``ctypes``
 loads.  All sources build at once, one ``nvcc`` process each.  Libraries
-go to ``_build/<hash of sources and flags>/`` inside the package, a
-directory that ``.gitignore`` lists, so a changed source rebuilds and an
+go to ``_build/<hash>/`` inside the package, a directory that
+``.gitignore`` lists; the hash covers the flags, the source and every
+``csrc/*.cuh`` header, so a changed source or header rebuilds and an
 unchanged one loads from there.  There is no fallback: a missing ``nvcc``
 or a failed build raises.
 
@@ -34,9 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signature of each entry point: (source stem, argtypes).
 SIGNATURES = {
-    "word_encode": ("word_encode", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "word_decode": ("word_decode",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "word_encode": ("word_encode", [_P] * 5 + [_I] * 4 + [_P]),
+    "word_decode": ("word_decode", [_P] * 8 + [_I] * 4 + [_P]),
+    "byte_encode": ("byte_encode", [_P] * 6 + [_I] * 4 + [_P]),
+    "byte_decode": ("byte_decode", [_P] * 9 + [_I] * 5 + [_P]),
+    "rans64_encode": ("rans64_encode", [_P] * 5 + [_I] * 4 + [_P]),
+    "rans64_decode": ("rans64_decode", [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -60,6 +64,8 @@ def _lib_path(stem: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / f"{stem}.so"
 
 

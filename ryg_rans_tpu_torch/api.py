@@ -1,9 +1,12 @@
 """Public one-call API: compress / decompress on the card.
 
-Every entry point takes ``device="cuda"`` by default and runs the WORD
-kernels there.  ``device="cpu"`` runs the kernels' plain PyTorch versions
-instead; that is the only way onto the CPU: with no CUDA device the default
-raises, and a kernel that fails to build or launch raises.
+Every entry point takes ``device="cuda"`` by default and runs the kernels
+of the container's variant there: WORD (``ops.word``), BYTE and ALIAS
+(``ops.byte``) or RANS64 (``ops.rans64``).  ``device="cpu"`` runs the
+kernels' plain PyTorch versions instead; that is the only way onto the CPU:
+with no CUDA device the default raises, and a kernel that fails to build or
+launch raises.  A config outside the kernels' shapes raises
+NotImplementedError.
 
 For the same input and ``RansConfig`` the containers are byte-identical to
 the reference package's ``compress(data, backend="numpy")``: the same
@@ -24,13 +27,21 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .config import RansConfig
+from .config import RansConfig, Variant
 from .models import stats
-from .ops import word
+from .ops import byte, rans64, word
 from .utils import container as cont
 from .utils.log import backend_choice, container_summary
 
-_WORD_BYTES = 2  # WORD stream words are u16
+_CODECS = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
+           Variant.RANS64: rans64}
+
+
+def _codec(cfg: RansConfig):
+    """The ops module coding ``cfg.variant``, after its config check."""
+    mod = _CODECS[cfg.variant]
+    mod.check_config(cfg)
+    return mod
 
 
 def _device(device) -> torch.device:
@@ -72,20 +83,22 @@ def _encode_container(cfg: RansConfig, t: torch.Tensor,
     ``host`` (the same data on the host) or, when None, fetch a raw block's
     bytes from ``t``."""
     S = t.numel()
+    codec = _codec(cfg)
     with record_function("rans.model"):
         freqs, cum = _model(t, cfg.prob_bits)
     with record_function("rans.encode"):
         padded = word.pad_block(t, cfg.n_lanes, freqs)
-        payloads = [[w] for w in word.encode(cfg, padded, freqs, cum)]
+        payloads = [[w] for w in codec.encode(cfg, padded, freqs, cum)]
 
     # raw-block fallback (rans_byte.h:28-35): store a block verbatim when
     # coding would not shrink it
+    wsize = np.dtype(cont.word_dtype(cfg.variant)).itemsize
     raw = np.zeros(len(payloads), bool)
     slices = list(_block_slices(cfg, padded.numel()))
     with record_function("rans.raw"):
         for b, (off, size) in enumerate(slices):
             end = min(off + size, S)
-            if payloads[b][0].size * _WORD_BYTES >= end - off:
+            if payloads[b][0].size * wsize >= end - off:
                 raw[b] = True
                 payloads[b] = [host[off:end].copy() if host is not None
                                else t[off:end].cpu().numpy()]
@@ -114,7 +127,7 @@ def compress(data, cfg: RansConfig | None = None,
     cfg = cfg or RansConfig.auto(data.size)
     if data.size == 0:
         return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
-    word.check_config(cfg)
+    _codec(cfg)  # refuse the config before the data goes to the device
     backend_choice(cfg, str(device), str(dev))
     return _encode_container(cfg, torch.from_numpy(data).to(dev), data)
 
@@ -139,14 +152,13 @@ def compress_from_device(t: torch.Tensor,
                          "(CRCs cover host-side original bytes)")
     if t.numel() == 0:
         return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
-    word.check_config(cfg)
     return _encode_container(cfg, t.contiguous(), None)
 
 
 def _decode_container(c: cont.Container, dev: torch.device) -> torch.Tensor:
     """All blocks of an unpacked container -> flat uint8 [orig_len]."""
     cfg = c.cfg
-    word.check_config(cfg)
+    codec = _codec(cfg)
     sizes = c.block_sizes()
     if len(c.payloads) != len(sizes):
         raise ValueError("container corrupt: block count does not match "
@@ -155,7 +167,7 @@ def _decode_container(c: cont.Container, dev: torch.device) -> torch.Tensor:
     coded = [i for i in range(len(sizes)) if not raw[i]]
     cum = stats.calc_cum_freqs(c.freqs)
     with record_function("rans.decode"):
-        dec = word.decode(cfg, [c.payloads[i][0] for i in coded],
+        dec = codec.decode(cfg, [c.payloads[i][0] for i in coded],
                           [sizes[i] for i in coded], c.freqs, cum, dev)
     if not raw.any():
         return dec[:c.orig_len]
@@ -222,7 +234,7 @@ def decompress_block(blob, block: int, device="cuda") -> bytes:
     dev = _device(device)
     c = cont.unpack(blob)
     cfg = c.cfg
-    word.check_config(cfg)
+    codec = _codec(cfg)
     sizes = c.block_sizes()
     if len(c.payloads) != len(sizes):
         raise ValueError("container corrupt: block count does not match "
@@ -236,7 +248,7 @@ def decompress_block(blob, block: int, device="cuda") -> bytes:
         out = np.asarray(payload, np.uint8)
     else:
         cum = stats.calc_cum_freqs(c.freqs)
-        out = word.decode(cfg, [payload], [sizes[block]], c.freqs, cum,
-                          dev)[:end - off].cpu().numpy()
+        out = codec.decode(cfg, [payload], [sizes[block]], c.freqs, cum,
+                           dev)[:end - off].cpu().numpy()
     _check_crc(c, block, out)
     return out.tobytes()

@@ -1,28 +1,74 @@
-"""Host-side WORD tables in the layout the port's kernels read.
+"""Host-side model tables in the layout the port's kernels read.
 
-The decoder maps a slot to its symbol through a plain ``uint8`` cum2sym of
-2^prob_bits entries, then reads the symbol's ``freq`` and ``cum``; the
-encoder reads ``freq`` and ``start`` (= cum) per symbol.  Both kernels copy
-these into shared memory at start.  The reference package's sym4 packing
-and parity-interleaved bisect keys served the TPU's gathers and have no
-counterpart here.
+Each kernel copies its tables into shared memory at start (the ALIAS remap,
+up to 128 KB, stays in global memory, where L1 and L2 hold it).  Values
+that are unsigned 32-bit in the reference travel as ``int32`` arrays
+holding the bit pattern.  The reference package's sym4 packing, mod-4
+interleaved segment tables, bisect keys and reciprocal tables served the
+TPU's gathers and its lack of 64-bit integers, and have no counterpart here.
+
+* WORD and BYTE decode: ``uint8`` cum2sym of 2^prob_bits entries, then the
+  symbol's ``freq`` and ``cum`` (separate arrays: at BYTE prob_bits 16 a
+  one-symbol model has freq 2^16, which no 16-bit field holds).
+* Encode (every variant): ``freq`` and ``start`` (= cum) per symbol.
+* ALIAS decode: the absolute bucket divider [256], then per half
+  (bucket2 = 2*bucket + (slot < divider)) the symbol, its freq and the
+  signed slot adjust [512].  ALIAS encode adds the flat remap [2^prob_bits].
+* RANS64 decode: cum2sym up to prob_bits 16; above, the kernel searches
+  ``cum`` [257] (cum[256] = 2^prob_bits reaches 2^31).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..models import alias as alias_mod
 from ..models import stats
 
 
+def _i32(a) -> np.ndarray:
+    """Values in [0, 2^32) -> int32 array of the same bits."""
+    return np.asarray(a, np.int64).astype(np.uint32).view(np.int32)
+
+
 def dec_tables(freqs, cum_freqs, prob_bits: int):
-    """-> (cum2sym uint8[2^prob_bits], freq int32[256], cum int32[256])."""
+    """WORD / BYTE decode -> (cum2sym uint8[2^prob_bits], freq int32[256],
+    cum int32[256])."""
     c2s = stats.cum2sym(np.asarray(cum_freqs, np.uint64), prob_bits)
     return (c2s, np.asarray(freqs, np.int64).astype(np.int32),
             np.asarray(cum_freqs[:256], np.int64).astype(np.int32))
 
 
 def enc_tables(freqs, cum_freqs):
-    """-> (freq int32[256], start int32[256])."""
-    return (np.asarray(freqs, np.int64).astype(np.int32),
-            np.asarray(cum_freqs[:256], np.int64).astype(np.int32))
+    """-> (freq int32[256], start int32[256]), u32 bits: RANS64 prob_bits 31
+    reaches 2^31 in both."""
+    return _i32(freqs), _i32(np.asarray(cum_freqs)[:256])
+
+
+def alias_dec_tables(freqs, cum_freqs, prob_bits: int):
+    """ALIAS decode -> (divider int32[256], sym int32[512], freq int32[512],
+    adjust int32[512]).
+
+    The adjust is the true signed value: it lies in (-2^16, 2^16], and
+    ``slot - adjust`` is the symbol's slot offset, in [0, freq).  Kernels
+    in u32 arithmetic read it as the wrapped u32 the reference stores."""
+    tab = alias_mod.make_alias_tables(freqs, cum_freqs, prob_bits)
+    adj = tab.slot_adjust.astype(np.int64)
+    adj = np.where(adj >= 1 << 31, adj - (1 << 32), adj)
+    return (tab.divider.astype(np.int32), tab.sym_id.astype(np.int32),
+            tab.slot_freqs.astype(np.int32), adj.astype(np.int32))
+
+
+def alias_remap(freqs, cum_freqs, prob_bits: int) -> np.ndarray:
+    """ALIAS encode -> the flat remap as int16[2^prob_bits] (u16 bits):
+    x = (x / freq) << prob_bits | remap[x % freq + start]."""
+    tab = alias_mod.make_alias_tables(freqs, cum_freqs, prob_bits)
+    return tab.alias_remap.astype(np.uint16).view(np.int16)
+
+
+def rans64_dec_tables(freqs, cum_freqs, prob_bits: int):
+    """RANS64 decode -> (cum2sym uint8[2^prob_bits] up to prob_bits 16, else
+    None; freq int32[256]; cum int32[257]), u32 bits."""
+    c2s = (stats.cum2sym(np.asarray(cum_freqs, np.uint64), prob_bits)
+           if prob_bits <= 16 else None)
+    return c2s, _i32(freqs), _i32(cum_freqs)

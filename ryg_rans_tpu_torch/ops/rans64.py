@@ -1,0 +1,289 @@
+"""RANS64 codec on the card: the K5/K6 kernel wrappers, their plain PyTorch
+versions, and the tensor glue around them.
+
+Counterpart of the reference package's ``ops/rans64_tpu.py``: a 63-bit
+state, L = 2^31 and 32-bit renormalisation of at most one word per symbol
+(rans64.h), over prob_bits 9-31.  On the card the state is a native
+``uint64_t``, and the encoder divides with native u64 ``/`` and ``%``,
+which gives the same quotient as the reference's Alverson reciprocal
+(rans64.h:167-247); the TPU's 16-bit limb arithmetic has no counterpart.
+
+Symbol ``i`` of a block is step ``i // N``, lane ``i % N``.  The stream of a
+block is [2N u32 head words: the final states lane-ascending as (lo, hi)
+(Rans64EncFlush, rans64.h:96-103)] ++ [renorm words, step ascending, lane
+ascending].  States cross the wrapper boundary as ``int64`` holding the
+u64 bits, u32 words and tables as ``int32`` bit patterns.  The plain
+versions hold states in ``int64``: a valid state stays below 2^63.  A
+wrapper takes its plain version only for tensors on the CPU; on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..config import RansConfig, Variant
+from . import host_prep
+from .word import (check_tables, i32_as_u32, assemble_blocks, block_sizes,
+                   check_shape, groups, stack_blocks)
+
+#: Symbols coded per kernel launch at most: 8 B/symbol of dense encode
+#: cells, so a group holds at most 1 GiB of them.
+GROUP_SYMBOLS = 1 << 27
+L_BITS = 31  # rans64.h:59
+
+
+def check_config(cfg: RansConfig) -> None:
+    """Raise for a config this module does not code: another variant
+    (ValueError) or a shape outside the device path
+    (NotImplementedError)."""
+    if cfg.variant != Variant.RANS64:
+        raise ValueError(f"ops.rans64 codes RANS64, not {cfg.variant.name}")
+    check_shape(cfg, 31)
+
+
+# ---------------------------------------------------------------------------
+# K6: dense encode
+# ---------------------------------------------------------------------------
+
+
+def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
+                  start: torch.Tensor, n_lanes: int, prob_bits: int):
+    """Dense encode of ``nb`` blocks (K6, ``csrc/rans64_encode.cu``).
+
+    syms: uint8 [nb, S] with S a multiple of n_lanes; freq, start: int32
+    [256] (u32 bits).  Returns (cells int64 [nb, S], states int64 [nb,
+    n_lanes]): cell ``1 << 32 | word`` where a lane wrote a renorm word at
+    that step, else 0, and the final states.
+    """
+    if (syms.dtype != torch.uint8 or syms.dim() != 2
+            or syms.shape[1] % n_lanes or not syms.is_contiguous()):
+        raise ValueError("syms must be contiguous uint8 [n_blocks, "
+                         "steps * n_lanes]")
+    if freq.dtype != torch.int32 or start.dtype != torch.int32 \
+            or freq.numel() != 256 or start.numel() != 256:
+        raise ValueError("freq and start must be int32 [256]")
+    check_tables(syms, freq, start)
+    if syms.device.type == "cpu":
+        return encode_blocks_ref(syms, freq, start, n_lanes, prob_bits)
+    if syms.device.type != "cuda":
+        raise ValueError(f"no RANS64 encode kernel for {syms.device}")
+    nb, S = syms.shape
+    cells = torch.empty((nb, S), dtype=torch.int64, device=syms.device)
+    states = torch.empty((nb, n_lanes), dtype=torch.int64,
+                         device=syms.device)
+    if nb:
+        _kernels.call("rans64_encode", syms.device, syms.data_ptr(),
+                      freq.data_ptr(), start.data_ptr(), cells.data_ptr(),
+                      states.data_ptr(), nb, n_lanes, S // n_lanes,
+                      prob_bits)
+        encode_blocks.launches += 1
+    return cells, states
+
+
+encode_blocks.launches = 0
+
+
+def encode_blocks_ref(syms: torch.Tensor, freq: torch.Tensor,
+                      start: torch.Tensor, n_lanes: int, prob_bits: int):
+    """Plain version of :func:`encode_blocks`: the same arithmetic,
+    vectorised over lanes with a loop over steps, states in int64."""
+    nb, S = syms.shape
+    T = S // n_lanes
+    grid = syms.view(nb, T, n_lanes)
+    f64, st64 = i32_as_u32(freq), i32_as_u32(start)
+    x = torch.full((nb, n_lanes), 1 << L_BITS, dtype=torch.int64,
+                   device=syms.device)
+    cells = torch.empty((nb, T, n_lanes), dtype=torch.int64,
+                        device=syms.device)
+    shift = 31 - prob_bits
+    for t in range(T - 1, -1, -1):
+        s = grid[:, t].to(torch.int64)
+        f, st = f64[s], st64[s]
+        # x >= freq << (63 - prob_bits), which reaches 2^63 at prob_bits
+        # 31, compared on the high word (rans64.h:83)
+        m = (x >> 32) >= (f << shift)
+        cells[:, t] = torch.where(m, (x & 0xFFFFFFFF) | (1 << 32), 0)
+        x = torch.where(m, x >> 32, x)
+        x = ((x // f) << prob_bits) + x % f + st
+    return cells.view(nb, S), x
+
+
+# ---------------------------------------------------------------------------
+# K5: decode
+# ---------------------------------------------------------------------------
+
+
+def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
+                  body_off: torch.Tensor, body_len: torch.Tensor,
+                  c2s: torch.Tensor | None, freq: torch.Tensor,
+                  cum: torch.Tensor, n_symbols: int,
+                  prob_bits: int) -> torch.Tensor:
+    """Decode ``nb`` blocks of ``n_symbols`` each (K5,
+    ``csrc/rans64_decode.cu``).
+
+    x0: int64 [nb, N] initial states; words: int32 [W] stream buffer (u32
+    bits), block b's body being ``words[body_off[b]: body_off[b] +
+    body_len[b]]`` (int64 / int32 [nb]); c2s: uint8 [2^prob_bits] up to
+    prob_bits 16, else None (the symbol is then found by a binary search
+    on cum); freq: int32 [256]; cum: int32 [257] (u32 bits).  Returns
+    uint8 [nb, n_symbols].  A word read past a block's body reads its last
+    word (a corrupt container decodes to garbage, never out of bounds).
+    """
+    if x0.dtype != torch.int64 or x0.dim() != 2 or not x0.is_contiguous():
+        raise ValueError("x0 must be contiguous int64 [n_blocks, n_lanes]")
+    nb, N = x0.shape
+    if n_symbols % N:
+        raise ValueError("n_symbols must be a multiple of n_lanes")
+    if (words.dtype != torch.int32 or body_off.dtype != torch.int64
+            or body_len.dtype != torch.int32 or freq.dtype != torch.int32
+            or cum.dtype != torch.int32):
+        raise ValueError("decode_blocks: wrong argument dtypes")
+    if (body_off.shape != (nb,) or body_len.shape != (nb,)
+            or freq.numel() != 256 or cum.numel() != 257):
+        raise ValueError("decode_blocks: wrong argument shapes")
+    if (c2s is None) != (prob_bits > 16) or c2s is not None and (
+            c2s.dtype != torch.uint8 or c2s.numel() != 1 << prob_bits):
+        raise ValueError("c2s must be uint8 [2^prob_bits] up to prob_bits "
+                         "16 and None above")
+    check_tables(x0, words, body_off, body_len, freq, cum,
+                  *([] if c2s is None else [c2s]))
+    if x0.device.type == "cpu":
+        return decode_blocks_ref(x0, words, body_off, body_len, c2s, freq,
+                                 cum, n_symbols, prob_bits)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no RANS64 decode kernel for {x0.device}")
+    out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
+    if nb:
+        _kernels.call("rans64_decode", x0.device, x0.data_ptr(),
+                      words.data_ptr(), body_off.data_ptr(),
+                      body_len.data_ptr(),
+                      None if c2s is None else c2s.data_ptr(),
+                      freq.data_ptr(), cum.data_ptr(), out.data_ptr(), nb, N,
+                      n_symbols // N, prob_bits)
+        decode_blocks.launches += 1
+    return out
+
+
+decode_blocks.launches = 0
+
+
+def decode_blocks_ref(x0: torch.Tensor, words: torch.Tensor,
+                      body_off: torch.Tensor, body_len: torch.Tensor,
+                      c2s: torch.Tensor | None, freq: torch.Tensor,
+                      cum: torch.Tensor, n_symbols: int,
+                      prob_bits: int) -> torch.Tensor:
+    """Plain version of :func:`decode_blocks`: lanes vectorised, a loop
+    over steps, the per-step rank as a cumulative sum over lanes."""
+    nb, N = x0.shape
+    T = n_symbols // N
+    dev = x0.device
+    x = x0.clone()
+    W = words.numel()
+    # one trailing zero word: what a lane reads from an empty body
+    w = torch.cat([i32_as_u32(words),
+                   torch.zeros(1, dtype=torch.int64, device=dev)])
+    f64, c64 = i32_as_u32(freq), i32_as_u32(cum)
+    c2s64 = None if c2s is None else c2s.to(torch.int64)
+    off = body_off.view(nb, 1)
+    blen = body_len.to(torch.int64).view(nb, 1)
+    cursor = torch.zeros((nb, 1), dtype=torch.int64, device=dev)
+    out = torch.empty((nb, T, N), dtype=torch.uint8, device=dev)
+    mask = (1 << prob_bits) - 1
+    for t in range(T):
+        slot = x & mask
+        # the symbol whose range [cum[s], cum[s+1]) holds the slot
+        s = c2s64[slot] if c2s64 is not None else \
+            torch.searchsorted(c64[1:], slot, right=True)
+        x = f64[s] * (x >> prob_bits) + slot - c64[s]
+        out[:, t] = s.to(torch.uint8)
+        m = x < (1 << L_BITS)
+        mi = m.to(torch.int64)
+        pos = torch.minimum(cursor + torch.cumsum(mi, 1) - mi, blen - 1)
+        idx = torch.where(blen > 0, off + pos, W)
+        x = torch.where(m, (x << 32) | w[idx], x)
+        cursor = cursor + mi.sum(1, keepdim=True)
+    return out.view(nb, n_symbols)
+
+
+# ---------------------------------------------------------------------------
+# Glue: compaction, stream prep, orchestration
+# ---------------------------------------------------------------------------
+
+
+def compact_emissions(cells: torch.Tensor, states: torch.Tensor):
+    """Dense cells -> (heads int32 [nb, 2N], body int32 [total], counts
+    int64 [nb]), u32 bits.
+
+    The row-major [block, step, lane] order of the cells is stream order,
+    so a boolean-mask select keeps exactly the written words, block after
+    block.  Heads are the final states as (lo, hi) words lane-ascending
+    (Rans64EncFlush, rans64.h:96-103): the states' little-endian halves.
+    """
+    nb, S = cells.shape
+    emitted = cells != 0
+    body = cells.view(torch.int32).view(nb, S, 2)[:, :, 0][emitted]
+    heads = states.contiguous().view(torch.int32).view(nb, -1)
+    return heads, body, emitted.sum(1)
+
+
+def prep_decode(word_blocks: list[np.ndarray], n_lanes: int, device):
+    """Per-block u32 word arrays [head | body] -> the decode kernel's
+    inputs (x0 int64 [nb, N], words int32 [W], body_off int64 [nb],
+    body_len int32 [nb]) on ``device``."""
+    words, heads, body_off, body_len = stack_blocks(
+        word_blocks, 2 * n_lanes, np.uint32, device)
+    return heads.view(torch.int64), words, body_off, body_len
+
+
+def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
+           cum_freqs) -> list[np.ndarray]:
+    """Encode a flat uint8 tensor padded to a multiple of 4*n_lanes ->
+    per-block u32 word arrays [head | body] on the host."""
+    check_config(cfg)
+    N = cfg.n_lanes
+    if padded.numel() % (4 * N):
+        raise ValueError("input must be padded to a multiple of 4*n_lanes")
+    dev = padded.device
+    freq, start = (torch.from_numpy(a).to(dev)
+                   for a in host_prep.enc_tables(freqs, cum_freqs))
+    out: list[np.ndarray] = []
+    pos = 0
+    for _, nb, size in groups(block_sizes(cfg.block_symbols,
+                                          padded.numel()), GROUP_SYMBOLS):
+        syms = padded[pos:pos + nb * size].view(nb, size)
+        pos += nb * size
+        cells, states = encode_blocks(syms, freq, start, N, cfg.prob_bits)
+        heads, body, counts = compact_emissions(cells, states)
+        del cells
+        out += assemble_blocks(heads.cpu().numpy().view(np.uint32),
+                               body.cpu().numpy().view(np.uint32),
+                               counts.cpu().numpy())
+    return out
+
+
+def dec_tables(cfg: RansConfig, freqs, cum_freqs, device) -> tuple:
+    """(c2s or None, freq, cum) on ``device``."""
+    return tuple(None if a is None else torch.from_numpy(a).to(device)
+                 for a in host_prep.rans64_dec_tables(freqs, cum_freqs,
+                                                      cfg.prob_bits))
+
+
+def decode(cfg: RansConfig, word_blocks: list[np.ndarray], sizes: list[int],
+           freqs, cum_freqs, device) -> torch.Tensor:
+    """Decode per-block u32 word arrays (padded symbol counts ``sizes``,
+    all equal but the last) -> flat uint8 tensor on ``device``."""
+    check_config(cfg)
+    N = cfg.n_lanes
+    device = torch.device(device)
+    tables = dec_tables(cfg, freqs, cum_freqs, device)
+    parts = []
+    for b0, nb, size in groups(sizes, GROUP_SYMBOLS):
+        stream = prep_decode(word_blocks[b0:b0 + nb], N, device)
+        parts.append(decode_blocks(*stream, *tables, size,
+                                   cfg.prob_bits).view(-1))
+    if not parts:
+        return torch.empty(0, dtype=torch.uint8, device=device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -163,16 +163,27 @@ def test_v1_container_decodes():
 
 
 def test_containers_outside_the_slice_raise():
+    """What no kernel takes raises NotImplementedError naming ROADMAP item
+    8, for every variant: several substreams per block, prob_bits 8, WORD
+    prob_bits 16 and fewer than 128 lanes."""
     data = skewed(5000, seed=13)
-    byte_blob = japi.compress(data, JConfig.reference(JVariant.BYTE, 128),
-                              backend="numpy")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        rt.decompress(byte_blob, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.compress(data, rt.RansConfig.reference(rt.Variant.RANS64, 128),
-                    device="cpu")
-    multi = rt.RansConfig(n_lanes=512, lanes_per_stream=128)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rt.compress(data, multi, device="cpu")
+    multi = JConfig(variant=JVariant.BYTE, prob_bits=14, n_lanes=512,
+                    lanes_per_stream=128)
+    multi_blob = japi.compress(data, multi, backend="numpy")
+    for call in (lambda: rt.decompress(multi_blob, device="cpu"),
+                 lambda: rt.decompress_block(multi_blob, 0, device="cpu"),
+                 lambda: rt.decompress_to_device(multi_blob, device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            call()
+    for cfg in (rt.RansConfig(n_lanes=512, lanes_per_stream=128),
+                rt.RansConfig(variant=rt.Variant.RANS64, n_lanes=512,
+                              lanes_per_stream=256),
+                rt.RansConfig(variant=rt.Variant.ALIAS, prob_bits=8),
+                rt.RansConfig(prob_bits=8),
+                rt.RansConfig(prob_bits=16),
+                rt.RansConfig(variant=rt.Variant.BYTE, n_lanes=64,
+                              block_symbols=1 << 12)):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            rt.compress(data, cfg, device="cpu")
     with pytest.raises(ValueError, match="device"):
         rt.compress(data, device="meta")

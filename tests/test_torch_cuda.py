@@ -1,6 +1,7 @@
-"""The WORD kernels on the card against their plain PyTorch versions, and
-the entry points on the card against ``device="cpu"``.  Exact equality
-throughout: the codec has no tolerance.
+"""The kernels on the card (WORD K1/K2, BYTE/ALIAS K3/K4, RANS64 K5/K6)
+against their plain PyTorch versions, and the entry points on the card
+against ``device="cpu"``.  Exact equality throughout: the codec has no
+tolerance.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); run there with
 
@@ -20,7 +21,7 @@ import torch
 from _torch_corpora import CORPORA, random_bytes, skewed
 import ryg_rans_tpu_torch as rt
 from ryg_rans_tpu_torch.models import stats
-from ryg_rans_tpu_torch.ops import host_prep, word
+from ryg_rans_tpu_torch.ops import byte, host_prep, rans64, word
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +92,155 @@ def test_truncated_body_kernel_matches_plain(dev):
         out_r = word.decode_blocks_ref(*stream, *tables, B, pb)
         torch.cuda.synchronize()
         assert torch.equal(out, out_r)
+
+
+def _byte_kernel_vs_plain(dev, data, variant, N, pb, B):
+    freqs, cum = stats.build_model(data, pb)
+    f, st = (torch.from_numpy(a).to(dev)
+             for a in host_prep.enc_tables(freqs, cum))
+    alias = variant == rt.Variant.ALIAS
+    remap = (torch.from_numpy(host_prep.alias_remap(freqs, cum, pb)).to(dev)
+             if alias else None)
+    syms = torch.from_numpy(data).to(dev).view(-1, B)
+    before = byte.encode_blocks.launches
+    cells, states = byte.encode_blocks(syms, f, st, remap, N, pb)
+    assert byte.encode_blocks.launches == before + 1
+    cells_r, states_r = byte.encode_blocks_ref(syms, f, st, remap, N, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
+
+    cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
+                        block_symbols=B)
+    blocks = byte.encode(cfg, syms.view(-1), freqs, cum)
+    tables = byte.dec_tables(cfg, freqs, cum, dev)
+    stream = byte.prep_decode(blocks, N, dev)
+    before = byte.decode_blocks.launches
+    out = byte.decode_blocks(*stream, tables, B, pb, alias)
+    assert byte.decode_blocks.launches == before + 1
+    out_r = byte.decode_blocks_ref(*stream, tables, B, pb, alias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r) and torch.equal(out, syms)
+    return blocks, tables
+
+
+def _rans64_kernel_vs_plain(dev, data, N, pb, B):
+    freqs, cum = stats.build_model(data, pb)
+    f, st = (torch.from_numpy(a).to(dev)
+             for a in host_prep.enc_tables(freqs, cum))
+    syms = torch.from_numpy(data).to(dev).view(-1, B)
+    before = rans64.encode_blocks.launches
+    cells, states = rans64.encode_blocks(syms, f, st, N, pb)
+    assert rans64.encode_blocks.launches == before + 1
+    cells_r, states_r = rans64.encode_blocks_ref(syms, f, st, N, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
+
+    cfg = rt.RansConfig(variant=rt.Variant.RANS64, prob_bits=pb, n_lanes=N,
+                        block_symbols=B)
+    blocks = rans64.encode(cfg, syms.view(-1), freqs, cum)
+    tables = rans64.dec_tables(cfg, freqs, cum, dev)
+    stream = rans64.prep_decode(blocks, N, dev)
+    before = rans64.decode_blocks.launches
+    out = rans64.decode_blocks(*stream, *tables, B, pb)
+    assert rans64.decode_blocks.launches == before + 1
+    out_r = rans64.decode_blocks_ref(*stream, *tables, B, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r) and torch.equal(out, syms)
+    return blocks, tables
+
+
+LANES = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+
+
+@pytest.mark.parametrize("N", LANES)
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.BYTE, 9), (rt.Variant.BYTE, 14), (rt.Variant.BYTE, 16),
+    (rt.Variant.ALIAS, 9), (rt.Variant.ALIAS, 16)],
+    ids=["BYTE-pb9", "BYTE-pb14", "BYTE-pb16", "ALIAS-pb9", "ALIAS-pb16"])
+def test_byte_kernels_every_lane_count(dev, variant, pb, N):
+    B = 16 * N
+    _byte_kernel_vs_plain(dev, skewed(3 * B, seed=N + pb), variant, N, pb, B)
+
+
+@pytest.mark.parametrize("N", LANES)
+@pytest.mark.parametrize("pb", [9, 14, 16, 24, 31])
+def test_rans64_kernels_every_lane_count(dev, pb, N):
+    B = 16 * N
+    _rans64_kernel_vs_plain(dev, skewed(3 * B, seed=N + pb), N, pb, B)
+
+
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.BYTE, 16), (rt.Variant.ALIAS, 16), (rt.Variant.RANS64, 16),
+    (rt.Variant.RANS64, 31)])
+@pytest.mark.parametrize("corpus", ["one_symbol", "random", "sparse"])
+def test_new_kernels_edge_models(dev, corpus, variant, pb):
+    """One-symbol models (freq = 2^prob_bits), and at ALIAS pb 16 the
+    random model whose slot adjusts wrap."""
+    data = CORPORA[corpus](3 << 16, seed=3)
+    if variant == rt.Variant.RANS64:
+        _rans64_kernel_vs_plain(dev, data, 4096, pb, 1 << 16)
+    else:
+        _byte_kernel_vs_plain(dev, data, variant, 4096, pb, 1 << 16)
+
+
+def test_new_kernels_full_width(dev):
+    data = skewed(2 << 23, seed=1)
+    for v in (rt.Variant.BYTE, rt.Variant.ALIAS, rt.Variant.RANS64):
+        cfg = rt.RansConfig.auto(16 << 20, v)
+        assert (cfg.n_lanes, cfg.block_symbols) == (16384, 1 << 23)
+        if v == rt.Variant.RANS64:
+            _rans64_kernel_vs_plain(dev, data, 16384, cfg.prob_bits, 1 << 23)
+        else:
+            _byte_kernel_vs_plain(dev, data, v, 16384, cfg.prob_bits,
+                                  1 << 23)
+
+
+@pytest.mark.parametrize("variant", [rt.Variant.BYTE, rt.Variant.ALIAS,
+                                     rt.Variant.RANS64])
+def test_new_kernels_truncated_body_match_plain(dev, variant):
+    N, pb, B = 1024, 12, 1 << 15
+    data = skewed(B, seed=3)
+    if variant == rt.Variant.RANS64:
+        blocks, tables = _rans64_kernel_vs_plain(dev, data, N, pb, B)
+        head, mod, args = 2 * N, rans64, tables
+    else:
+        blocks, tables = _byte_kernel_vs_plain(dev, data, variant, N, pb, B)
+        head, mod = 4 * N, byte
+        args = (tables,)
+    for cut in (blocks[0].size - 7, head + 5, head):
+        stream = mod.prep_decode([blocks[0][:cut]], N, dev)
+        tail = (B, pb) if mod is rans64 else (B, pb,
+                                              variant == rt.Variant.ALIAS)
+        out = mod.decode_blocks(*stream, *args, *tail)
+        out_r = mod.decode_blocks_ref(*stream, *args, *tail)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_r)
+
+
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.BYTE, None), (rt.Variant.ALIAS, None),
+    (rt.Variant.RANS64, None), (rt.Variant.RANS64, 31)],
+    ids=["BYTE", "ALIAS", "RANS64", "RANS64-pb31"])
+@pytest.mark.parametrize("size", [20_000, (9 << 20) + 12_345])
+def test_new_variants_entry_points_on_card_match_cpu(dev, size, variant, pb):
+    data = skewed(size, seed=size)
+    cfg = rt.RansConfig.auto(size, variant)
+    if pb is not None:
+        cfg = dataclasses.replace(cfg, prob_bits=pb)
+    mod = rans64 if variant == rt.Variant.RANS64 else byte
+    mod.encode_blocks.launches = mod.decode_blocks.launches = 0
+    blob = rt.compress(data, cfg)
+    assert blob == rt.compress(data, cfg, device="cpu")
+    assert rt.decompress(blob) == data.tobytes()
+    t = torch.from_numpy(data).to(dev)
+    assert torch.equal(rt.decompress_to_device(blob), t)
+    nocrc = dataclasses.replace(cfg, checksum=False)
+    assert rt.compress_from_device(t, nocrc) == rt.compress(data, nocrc,
+                                                            device="cpu")
+    assert rt.decompress_block(blob, 0) == data[:cfg.block_symbols] \
+        .tobytes()
+    assert mod.encode_blocks.launches >= 2
+    assert mod.decode_blocks.launches >= 2
 
 
 @pytest.mark.parametrize("size", [20_000, 70_001, (9 << 20) + 12_345])

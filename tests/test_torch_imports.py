@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from ryg_rans_tpu_torch.ops import word
+from ryg_rans_tpu_torch.ops import byte, rans64, word
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ryg_rans_tpu_torch"
@@ -80,6 +80,27 @@ def test_wrappers_refuse_other_devices():
             512, 12)
 
 
+def test_new_variant_wrappers_refuse_other_devices():
+    def meta(n, dtype=torch.int32):
+        return torch.zeros(n, dtype=dtype, device="meta")
+
+    syms = torch.zeros((1, 512), dtype=torch.uint8, device="meta")
+    tab = meta(256)
+    with pytest.raises(ValueError, match="no BYTE/ALIAS encode kernel"):
+        byte.encode_blocks(syms, tab, tab, None, 128, 12)
+    with pytest.raises(ValueError, match="no RANS64 encode kernel"):
+        rans64.encode_blocks(syms, tab, tab, 128, 20)
+    stream = (meta((1, 128)), meta(900, torch.uint8), meta(1, torch.int64),
+              meta(1))
+    alias = (meta(256), meta(512), meta(512), meta(512))
+    with pytest.raises(ValueError, match="no BYTE/ALIAS decode kernel"):
+        byte.decode_blocks(*stream, alias, 512, 12, True)
+    with pytest.raises(ValueError, match="no RANS64 decode kernel"):
+        rans64.decode_blocks(meta((1, 128), torch.int64), meta(300),
+                             meta(1, torch.int64), meta(1), None, tab,
+                             meta(257), 512, 20)
+
+
 def test_default_device_raises_without_a_card():
     """Runs here, where there is no card; where there is one the default
     device is the card and the subprocess test covers the refusal."""
@@ -87,7 +108,9 @@ def test_default_device_raises_without_a_card():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    byte_cfg = rt.RansConfig.auto(3, rt.Variant.BYTE)
     for call in (lambda: rt.compress(b"abc"),
+                 lambda: rt.compress(b"abc", byte_cfg),
                  lambda: rt.decompress(b"TRNS"),
                  lambda: rt.decompress_to_device(b"TRNS"),
                  lambda: rt.decompress_block(b"TRNS", 0)):

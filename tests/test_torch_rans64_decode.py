@@ -1,0 +1,25 @@
+"""The plain K5 version through ryg_rans_tpu_torch.ops.rans64.decode against
+the reference package's Pallas RANS64 decoder (interpret mode), symbol for
+symbol, on the cases of test_torch_rans64 that carry the Pallas checks
+(kept in a file of their own so that each file stays short)."""
+
+import numpy as np
+import pytest
+
+from ryg_rans_tpu.ops import rans64_tpu
+from ryg_rans_tpu_torch.ops import rans64, word
+from test_torch_rans64 import CASES, IDS, PALLAS, port_encode, setup
+
+
+@pytest.mark.parametrize("case", [CASES[i] for i in PALLAS],
+                         ids=[IDS[i] for i in PALLAS])
+def test_decode_matches_pallas(case):
+    cfg, jcfg, data, freqs, cum = setup(case)
+    blocks, padded = port_encode(cfg, data, freqs, cum)
+    sizes = word.block_sizes(cfg.block_symbols, padded.numel())
+    mine = rans64.decode(cfg, blocks, sizes, freqs, cum, "cpu").numpy()
+    theirs = rans64_tpu.decode(jcfg, blocks, padded.numel(), freqs, cum,
+                               interpret=True)
+    assert mine.dtype == theirs.dtype == np.uint8
+    assert np.array_equal(mine, theirs)
+    assert np.array_equal(mine[:data.size], data)

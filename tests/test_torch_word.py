@@ -13,7 +13,7 @@ from ryg_rans_tpu.models import stats as jstats
 from ryg_rans_tpu.ops import reference_numpy as oracle
 from ryg_rans_tpu.ops import word_tpu
 from ryg_rans_tpu_torch.config import RansConfig, Variant
-from ryg_rans_tpu_torch.ops import host_prep, word
+from ryg_rans_tpu_torch.ops import byte, host_prep, rans64, word
 
 # (prob_bits, n_lanes, block_symbols, input bytes, corpus): every input
 # spans two full blocks and a tail block.
@@ -178,9 +178,11 @@ def test_truncated_body_decodes_without_fault():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(variant=Variant.BYTE, prob_bits=14), "item 5"),
-    (dict(variant=Variant.ALIAS, prob_bits=16), "item 5"),
-    (dict(variant=Variant.RANS64, prob_bits=14), "item 6"),
+    (dict(variant=Variant.BYTE, prob_bits=8), "item 8"),
+    (dict(variant=Variant.ALIAS, n_lanes=64, block_symbols=1 << 12),
+     "item 8"),
+    (dict(variant=Variant.RANS64, n_lanes=1024, lanes_per_stream=256),
+     "item 8"),
     (dict(prob_bits=16), "item 8"),
     (dict(prob_bits=8), "item 8"),
     (dict(n_lanes=64, block_symbols=1 << 12), "item 8"),
@@ -189,5 +191,21 @@ def test_truncated_body_decodes_without_fault():
     (dict(n_lanes=32768, block_symbols=1 << 17), "item 8"),
 ])
 def test_configs_outside_the_slice_raise(kwargs, item):
+    """Each variant's module refuses the shapes no kernel takes."""
+    cfg = RansConfig(**kwargs)
+    codec = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
+             Variant.RANS64: rans64}[cfg.variant]
     with pytest.raises(NotImplementedError, match=item):
-        word.check_config(RansConfig(**kwargs))
+        codec.check_config(cfg)
+
+
+@pytest.mark.parametrize("variant", [Variant.BYTE, Variant.ALIAS,
+                                     Variant.RANS64])
+def test_word_refuses_other_variants(variant):
+    cfg = RansConfig(variant=variant, prob_bits=12)
+    with pytest.raises(ValueError, match="codes WORD"):
+        word.check_config(cfg)
+    word_cfg = RansConfig(prob_bits=12)
+    other = rans64 if variant == Variant.BYTE else byte
+    with pytest.raises(ValueError, match="codes"):
+        other.check_config(word_cfg)
