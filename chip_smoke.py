@@ -15,7 +15,9 @@ Phases, each fatal on failure:
    blocks, BYTE prob_bits 14, ALIAS 16, RANS64 14 and 31; four full blocks
    and a tail), at BYTE prob_bits 16 (the 64 KB cum2sym), at RANS64
    prob_bits 24 and on a prob_bits-31 one-symbol input, on an ALIAS model
-   whose slot adjusts wrap, and at prob_bits 12 with 1024 lanes;
+   whose slot adjusts wrap, at prob_bits 12 with 1024 lanes, and on uniform
+   random bytes at full width (BYTE prob_bits 16, RANS64 31: about a refill
+   a lane a step, the thinnest lead of the decoders' stream ring);
 3. drive each variant's path through the user entry points on seeded skewed
    input: WORD on 64 MiB plus a tail (8 full blocks and a tail block) with
    no config, BYTE, ALIAS and RANS64 on 32 MiB plus a tail (4 full blocks
@@ -27,8 +29,11 @@ Phases, each fatal on failure:
    after it;
 4. time each kernel (CUDA events) and its plain version on the full-block
    launch group of its path, and the warm wall time of each entry point of
-   each path; then trace one WORD ``compress`` and ``decompress`` with
-   torch.profiler.
+   each path; for the cluster decoders K3 (BYTE, ALIAS) and K5 (RANS64
+   prob_bits 14 and 31), print the launch plan's cluster size C, the CTAs
+   (SMs at most) a launch group uses, ``cudaOccupancyMaxActiveClusters``,
+   and the group's and one block's time at every C the plan allows; then
+   trace one WORD ``compress`` and ``decompress`` with torch.profiler.
 
 It prints the card's name and power limit, the measurements, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -177,8 +182,12 @@ class Codec:
         fn = self.mod.encode_blocks_ref if ref else self.mod.encode_blocks
         return fn(syms, *self.enc_tabs, self.N, self.pb)
 
-    def decode(self, stream, size, ref=False):
-        fn = self.mod.decode_blocks_ref if ref else self.mod.decode_blocks
+    def decode(self, stream, size, ref=False, plan=None):
+        if ref:
+            fn = self.mod.decode_blocks_ref
+        else:
+            def fn(*args):
+                return self.mod.decode_blocks(*args, plan=plan)
         if self.variant == "RANS64":
             return fn(*stream, *self.dec_tabs, size, self.pb)
         return fn(*stream, self.dec_tabs, size, self.pb,
@@ -206,6 +215,9 @@ def new_cases(RansConfig, Variant, data_main):
                           block_symbols=bs)
 
     r64 = RansConfig.auto(NEW_LEN, R)
+    # two full blocks and a tail of uniform random bytes
+    rnd = np.random.default_rng(5).integers(0, 256, (2 << 23) + 4567,
+                                            dtype=np.uint8)
     return [
         ("BYTE full width", RansConfig.auto(NEW_LEN, B), full),
         ("ALIAS full width", RansConfig.auto(NEW_LEN, A), full),
@@ -220,6 +232,8 @@ def new_cases(RansConfig, Variant, data_main):
         ("BYTE pb12 1024 lanes", cfg(B, 12, 1024), small),
         ("ALIAS pb12 1024 lanes", cfg(A, 12, 1024), small),
         ("RANS64 pb12 1024 lanes", cfg(R, 12, 1024), small),
+        ("BYTE pb16 random full width", cfg(B, 16, 16384, 1 << 23), rnd),
+        ("RANS64 pb31 random full width", cfg(R, 31, 16384, 1 << 23), rnd),
     ]
 
 
@@ -277,8 +291,11 @@ def check_new_kernels(ops, stats, host_prep, cases):
 
 def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
     """Phase 4 for K3-K6: encode and decode kernel on the full-block launch
-    group of ``cfg``'s path, their plain versions, and their bounds."""
+    group of ``cfg``'s path, their plain versions, and their bounds; the
+    decoder's launch plan and its times at every cluster size it allows."""
     import torch
+
+    from ryg_rans_tpu_torch.ops import decode_plan
 
     N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
     nb = data.size // B
@@ -295,9 +312,30 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
     stream = c.mod.prep_decode(blocks, N, "cuda")
     dec_ms = cuda_ms(lambda: c.decode(stream, B), 20)
     dec_plain_ms = cuda_ms(lambda: c.decode(stream, B, ref=True), 1)
-    # one block is one CTA, as for K1: compare one block's time with nb's
+    # one block alone against nb blocks: equal times mean the time is one
+    # block's chain of steps, not the card's throughput
     stream1 = c.mod.prep_decode(blocks[:1], N, "cuda")
     dec1_ms = cuda_ms(lambda: c.decode(stream1, B), 20)
+    plan = decode_plan.plan(c.variant, N, pb)
+    sweep = []
+    for C in decode_plan.cluster_sizes(N):
+        p = decode_plan.plan(c.variant, N, pb, cluster=C)
+        occ = c.mod.max_active_clusters(p, "cuda")
+        t_nb = cuda_ms(lambda: c.decode(stream, B, plan=p), 20)
+        t_1 = cuda_ms(lambda: c.decode(stream1, B, plan=p), 20)
+        sweep.append(f"C={C} ({p.threads} threads x {p.lanes_per_thread} "
+                     f"lanes, {p.smem_bytes} B shared, max active clusters "
+                     f"{occ}): {t_nb:.4f} ms, one block {t_1:.4f} ms")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{c.variant} prob_bits {pb} decode plan: C={plan.cluster}, "
+          f"{plan.threads} threads x {plan.lanes_per_thread} lanes a CTA, "
+          f"ring {plan.ring_bytes} B, {plan.smem_bytes} B dynamic shared; "
+          f"{nb} blocks -> {nb * plan.cluster} CTAs (SMs used, at most; the "
+          f"card has {n_sm}), cudaOccupancyMaxActiveClusters "
+          f"{c.mod.max_active_clusters(plan, 'cuda')}; "
+          f"{nb}-block group {dec_ms:.4f} ms, one block {dec1_ms:.4f} ms "
+          f"({dec_ms * 1e3 / (B // N):.3f} us a step); per C: "
+          + "; ".join(sweep), flush=True)
     units = sum(int(b.size) for b in blocks)
     M = 1 << pb
     # bytes: symbols in, dense cells and states out, tables in (decode:
@@ -328,7 +366,7 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
           f"{dec_ms:.4f} ms ({S / dec_ms / 1e6:.3f} GB/s), plain "
           f"{dec_plain_ms:.2f} ms, bound {dec_bound[0]:.4f} ms "
           f"({dec_bound[1]}) [{nb} blocks x {B} symbols, {N} lanes]; "
-          f"decode kernel on 1 block (1 CTA) {dec1_ms:.4f} ms", flush=True)
+          f"decode kernel on 1 block {dec1_ms:.4f} ms", flush=True)
     return {"enc": (enc_ms, enc_plain_ms, enc_bound),
             "dec": (dec_ms, dec_plain_ms, dec_bound)}
 

@@ -11,7 +11,8 @@ or a failed build raises.
 
 Every pointer and the stream pass as ``ctypes.c_void_p``, every size as
 ``ctypes.c_int``; each C entry returns ``cudaGetLastError()`` after its
-launch, and :func:`check` raises when that is not 0.
+launch, and :func:`call` raises when that is not 0.  The two cluster
+decoders also export an occupancy query (:func:`query`).
 """
 
 from __future__ import annotations
@@ -33,14 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of each entry point: (source stem, argtypes).
+#: C signature of each entry point: (source stem, argtypes).  The
+#: launches take PyTorch's stream last; the ``*_occupancy`` queries take a
+#: pointer to the int they fill.
 SIGNATURES = {
     "word_encode": ("word_encode", [_P] * 5 + [_I] * 4 + [_P]),
     "word_decode": ("word_decode", [_P] * 8 + [_I] * 4 + [_P]),
     "byte_encode": ("byte_encode", [_P] * 6 + [_I] * 4 + [_P]),
-    "byte_decode": ("byte_decode", [_P] * 9 + [_I] * 5 + [_P]),
+    "byte_decode": ("byte_decode", [_P] * 9 + [_I] * 9 + [_P]),
+    "byte_decode_occupancy": ("byte_decode", [_I] * 7 + [_P]),
     "rans64_encode": ("rans64_encode", [_P] * 5 + [_I] * 4 + [_P]),
-    "rans64_decode": ("rans64_decode", [_P] * 8 + [_I] * 4 + [_P]),
+    "rans64_decode": ("rans64_decode", [_P] * 8 + [_I] * 8 + [_P]),
+    "rans64_decode_occupancy": ("rans64_decode", [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -110,11 +115,19 @@ def load(names=None) -> dict[str, ctypes.CDLL]:
             fn = getattr(lib, n)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{n}_error_string")
+            err = getattr(lib, f"{stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _libs[n] = lib
         return {n: _libs[n] for n in names}
+
+
+def _check(name: str, lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{SIGNATURES[name][0]}_error_string")(rc)
+        raise RuntimeError(
+            f"{name} failed: CUDA error {rc} "
+            f"({msg.decode() if msg else 'unknown'})")
 
 
 def call(name: str, device, *args) -> None:
@@ -126,8 +139,17 @@ def call(name: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc)
-        raise RuntimeError(
-            f"{name} launch failed: CUDA error {rc} "
-            f"({msg.decode() if msg else 'unknown'})")
+    _check(name, lib, rc)
+
+
+def query(name: str, device, *args) -> int:
+    """Call the query entry ``name`` on ``device``; return the int it
+    fills, or raise on a non-zero CUDA error code."""
+    import torch
+
+    lib = load([name])[name]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, ctypes.byref(out))
+    _check(name, lib, rc)
+    return out.value

@@ -1,14 +1,16 @@
 // Pieces shared by the BYTE/ALIAS (K3) and RANS64 (K5) decoders.
 //
-// A decoder CTA owns one container block; each of its threads owns L
-// consecutive lanes.  Every step, a refilling lane's stream position is the
-// block's cursor plus the number of refill units (bytes or words) that the
-// lanes before it take this step, in ascending lane order.  That is an
-// exclusive block-wide prefix sum of per-thread counts: a warp-shuffle scan,
-// then one shared array of warp totals.  The caller passes one of two such
-// arrays by step parity, so one barrier per step suffices: a thread reads
-// the array of step t before it arrives at the barrier of step t + 1, and
-// nobody writes it again before step t + 2.
+// A decoder CTA owns a contiguous run of a container block's lanes (the
+// block is one thread-block cluster, cluster_stream.cuh); each of its
+// threads owns L consecutive lanes.  Every step, a refilling lane's stream
+// position is the CTA's base (the block's cursor plus what the lower CTAs
+// of the cluster take) plus the number of refill units (bytes or words)
+// that the CTA's lanes before it take this step, in ascending lane order.
+// That is an exclusive CTA-wide prefix sum of per-thread counts: a
+// warp-shuffle scan, then one shared array of warp totals.  The caller
+// passes one of two such arrays by step parity, so one barrier per step
+// suffices: a thread reads the array of step t before it arrives at the
+// barrier of step t + 1, and nobody writes it again before step t + 2.
 
 #pragma once
 
@@ -61,19 +63,6 @@ __device__ __forceinline__ void store_symbols(uint8_t* p,
     *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
   } else {
     *p = static_cast<uint8_t>(w[0]);
-  }
-}
-
-// Lanes per thread for a CTA of min(n_lanes, 1024) threads, or 0 for a
-// lane count the decoders do not take.
-inline int lanes_per_thread(int n_lanes) {
-  switch (n_lanes) {
-    case 128: case 256: case 512: case 1024: return 1;
-    case 2048: return 2;
-    case 4096: return 4;
-    case 8192: return 8;
-    case 16384: return 16;
-    default: return 0;
   }
 }
 

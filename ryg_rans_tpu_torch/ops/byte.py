@@ -24,7 +24,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
-from . import host_prep
+from . import decode_plan, host_prep
 from .word import (check_tables, i32_as_u32, u32_as_i32, assemble_blocks,
                    block_sizes, check_shape, groups, stack_blocks)
 
@@ -136,9 +136,10 @@ def encode_blocks_ref(syms: torch.Tensor, freq: torch.Tensor,
 def decode_blocks(x0: torch.Tensor, data: torch.Tensor,
                   body_off: torch.Tensor, body_len: torch.Tensor,
                   tables: tuple, n_symbols: int, prob_bits: int,
-                  alias: bool) -> torch.Tensor:
+                  alias: bool, plan: decode_plan.DecodePlan | None = None
+                  ) -> torch.Tensor:
     """Decode ``nb`` blocks of ``n_symbols`` each (K3,
-    ``csrc/byte_decode.cu``).
+    ``csrc/byte_decode.cu``, one thread-block cluster per block).
 
     x0: int32 [nb, N] initial states (u32 bits); data: uint8 [W] stream
     buffer, block b's body being ``data[body_off[b]: body_off[b] +
@@ -147,7 +148,9 @@ def decode_blocks(x0: torch.Tensor, data: torch.Tensor,
     ``(divider int32 [256], sym, freq, adjust int32 [512])``
     (``host_prep``).  Returns uint8 [nb, n_symbols].  A byte read past a
     block's body reads its last byte (a corrupt container decodes to
-    garbage, never out of bounds).
+    garbage, never out of bounds).  ``plan`` defaults to
+    ``decode_plan.plan(variant, N, prob_bits)``; another plan of the same
+    shape is for measuring the kernel at other cluster sizes.
     """
     if x0.dtype != torch.int32 or x0.dim() != 2 or not x0.is_contiguous():
         raise ValueError("x0 must be contiguous int32 [n_blocks, n_lanes]")
@@ -173,18 +176,33 @@ def decode_blocks(x0: torch.Tensor, data: torch.Tensor,
                                  n_symbols, prob_bits, alias)
     if x0.device.type != "cuda":
         raise ValueError(f"no BYTE/ALIAS decode kernel for {x0.device}")
+    variant = "ALIAS" if alias else "BYTE"
+    if plan is None:
+        plan = decode_plan.plan(variant, N, prob_bits)
+    if (plan.variant, plan.n_lanes, plan.prob_bits) != (variant, N,
+                                                        prob_bits):
+        raise ValueError(f"plan {plan} is not for {variant} at {N} lanes, "
+                         f"prob_bits {prob_bits}")
     out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
     if nb:
         ptrs = [t.data_ptr() for t in tables] + [None] * (4 - len(tables))
         _kernels.call("byte_decode", x0.device, x0.data_ptr(),
                       data.data_ptr(), body_off.data_ptr(),
                       body_len.data_ptr(), *ptrs, out.data_ptr(), nb, N,
-                      n_symbols // N, prob_bits, int(alias))
+                      n_symbols // N, prob_bits, int(alias), *plan.c_args())
         decode_blocks.launches += 1
     return out
 
 
 decode_blocks.launches = 0
+
+
+def max_active_clusters(plan: decode_plan.DecodePlan, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K3 under ``plan`` on
+    ``device``."""
+    return _kernels.query("byte_decode_occupancy", device, plan.n_lanes,
+                          plan.prob_bits, int(plan.variant == "ALIAS"),
+                          *plan.c_args())
 
 
 def decode_blocks_ref(x0: torch.Tensor, data: torch.Tensor,

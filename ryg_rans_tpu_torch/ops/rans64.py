@@ -25,7 +25,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
-from . import host_prep
+from . import decode_plan, host_prep
 from .word import (check_tables, i32_as_u32, assemble_blocks, block_sizes,
                    check_shape, groups, stack_blocks)
 
@@ -119,10 +119,11 @@ def encode_blocks_ref(syms: torch.Tensor, freq: torch.Tensor,
 def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                   body_off: torch.Tensor, body_len: torch.Tensor,
                   c2s: torch.Tensor | None, freq: torch.Tensor,
-                  cum: torch.Tensor, n_symbols: int,
-                  prob_bits: int) -> torch.Tensor:
+                  cum: torch.Tensor, n_symbols: int, prob_bits: int,
+                  plan: decode_plan.DecodePlan | None = None
+                  ) -> torch.Tensor:
     """Decode ``nb`` blocks of ``n_symbols`` each (K5,
-    ``csrc/rans64_decode.cu``).
+    ``csrc/rans64_decode.cu``, one thread-block cluster per block).
 
     x0: int64 [nb, N] initial states; words: int32 [W] stream buffer (u32
     bits), block b's body being ``words[body_off[b]: body_off[b] +
@@ -131,6 +132,9 @@ def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
     on cum); freq: int32 [256]; cum: int32 [257] (u32 bits).  Returns
     uint8 [nb, n_symbols].  A word read past a block's body reads its last
     word (a corrupt container decodes to garbage, never out of bounds).
+    ``plan`` defaults to ``decode_plan.plan("RANS64", N, prob_bits)``;
+    another plan of the same shape is for measuring the kernel at other
+    cluster sizes.
     """
     if x0.dtype != torch.int64 or x0.dim() != 2 or not x0.is_contiguous():
         raise ValueError("x0 must be contiguous int64 [n_blocks, n_lanes]")
@@ -155,6 +159,12 @@ def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                                  cum, n_symbols, prob_bits)
     if x0.device.type != "cuda":
         raise ValueError(f"no RANS64 decode kernel for {x0.device}")
+    if plan is None:
+        plan = decode_plan.plan("RANS64", N, prob_bits)
+    if (plan.variant, plan.n_lanes, plan.prob_bits) != ("RANS64", N,
+                                                        prob_bits):
+        raise ValueError(f"plan {plan} is not for RANS64 at {N} lanes, "
+                         f"prob_bits {prob_bits}")
     out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
     if nb:
         _kernels.call("rans64_decode", x0.device, x0.data_ptr(),
@@ -162,12 +172,19 @@ def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                       body_len.data_ptr(),
                       None if c2s is None else c2s.data_ptr(),
                       freq.data_ptr(), cum.data_ptr(), out.data_ptr(), nb, N,
-                      n_symbols // N, prob_bits)
+                      n_symbols // N, prob_bits, *plan.c_args())
         decode_blocks.launches += 1
     return out
 
 
 decode_blocks.launches = 0
+
+
+def max_active_clusters(plan: decode_plan.DecodePlan, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K5 under ``plan`` on
+    ``device``."""
+    return _kernels.query("rans64_decode_occupancy", device, plan.n_lanes,
+                          plan.prob_bits, *plan.c_args())
 
 
 def decode_blocks_ref(x0: torch.Tensor, words: torch.Tensor,

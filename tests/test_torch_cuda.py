@@ -270,3 +270,122 @@ def test_raw_blocks_on_card(dev):
     assert rt.decompress(blob) == data.tobytes()
     assert torch.equal(rt.decompress_to_device(blob),
                        torch.from_numpy(data).to(dev))
+
+
+# -- the cluster decoders K3 and K5 (one thread-block cluster per block, the
+# stream staged in shared memory): shapes that stress the plan and the ring
+
+def _encode_blocks(dev, data, variant, N, pb, B):
+    """Container blocks of ``data`` and the decode tables, on the card."""
+    cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
+                        block_symbols=B)
+    mod = rans64 if variant == rt.Variant.RANS64 else byte
+    freqs, cum = stats.build_model(data, pb)
+    syms = torch.from_numpy(data).to(dev)
+    return mod.encode(cfg, syms, freqs, cum), mod.dec_tables(cfg, freqs,
+                                                             cum, dev)
+
+
+def _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan=None):
+    """Decode ``blocks`` as one launch group with the kernel and with its
+    plain version; assert they agree; return the kernel's output."""
+    if variant == rt.Variant.RANS64:
+        stream = rans64.prep_decode(blocks, N, dev)
+        before = rans64.decode_blocks.launches
+        out = rans64.decode_blocks(*stream, *tables, B, pb, plan=plan)
+        assert rans64.decode_blocks.launches == before + 1
+        out_r = rans64.decode_blocks_ref(*stream, *tables, B, pb)
+    else:
+        alias = variant == rt.Variant.ALIAS
+        stream = byte.prep_decode(blocks, N, dev)
+        before = byte.decode_blocks.launches
+        out = byte.decode_blocks(*stream, tables, B, pb, alias, plan=plan)
+        assert byte.decode_blocks.launches == before + 1
+        out_r = byte.decode_blocks_ref(*stream, tables, B, pb, alias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_r)
+    return out
+
+
+CLUSTER_VARIANTS = [(rt.Variant.BYTE, 14), (rt.Variant.ALIAS, 16),
+                    (rt.Variant.RANS64, 14), (rt.Variant.RANS64, 31)]
+CLUSTER_IDS = ["BYTE-pb14", "ALIAS-pb16", "RANS64-pb14", "RANS64-pb31"]
+
+
+def _plan_changes():
+    """Lane counts on either side of each change of the plan's C."""
+    from ryg_rans_tpu_torch.ops import decode_plan as dp
+    ns = set()
+    for lo, hi in zip(dp.LANE_COUNTS, dp.LANE_COUNTS[1:]):
+        if dp.plan("BYTE", lo, 12).cluster != dp.plan("BYTE", hi,
+                                                      12).cluster:
+            ns |= {lo, hi}
+    return sorted(ns)
+
+
+@pytest.mark.parametrize("variant,pb", CLUSTER_VARIANTS, ids=CLUSTER_IDS)
+def test_cluster_decoders_full_width_truncated_and_empty_body(dev, variant,
+                                                              pb):
+    """16384 lanes: a cut body, a body cut to nothing beside a whole one
+    (one launch group), both against the plain version."""
+    N, B = 16384, 64 * 16384
+    blocks, tables = _encode_blocks(dev, skewed(2 * B, seed=7), variant, N,
+                                    pb, B)
+    head = (2 if variant == rt.Variant.RANS64 else 4) * N
+    whole = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B)
+    assert torch.equal(whole.view(-1).cpu(),
+                       torch.from_numpy(skewed(2 * B, seed=7)))
+    for cut in (blocks[0].size - 7, head + (blocks[0].size - head) // 2,
+                head + 5):
+        _decode_vs_plain(dev, variant, [blocks[0][:cut]], tables, N, pb, B)
+    _decode_vs_plain(dev, variant, [blocks[0][:head], blocks[1]], tables, N,
+                     pb, B)
+
+
+@pytest.mark.parametrize("variant,pb", [(rt.Variant.BYTE, 16),
+                                        (rt.Variant.RANS64, 31)],
+                         ids=["BYTE-pb16", "RANS64-pb31"])
+def test_cluster_decoders_random_bytes_full_width(dev, variant, pb):
+    """Near-incompressible input refills about a unit a lane a step: the
+    ring's lead over the cursor is at its thinnest."""
+    data = random_bytes(2 << 23, 11)
+    if variant == rt.Variant.RANS64:
+        _rans64_kernel_vs_plain(dev, data, 16384, pb, 1 << 23)
+    else:
+        _byte_kernel_vs_plain(dev, data, variant, 16384, pb, 1 << 23)
+
+
+@pytest.mark.parametrize("variant,pb", CLUSTER_VARIANTS, ids=CLUSTER_IDS)
+def test_cluster_decoders_launch_group_of_eight_blocks(dev, variant, pb):
+    N, B = 16384, 1 << 20
+    data = skewed(8 * B, seed=8)
+    blocks, tables = _encode_blocks(dev, data, variant, N, pb, B)
+    assert len(blocks) == 8
+    out = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B)
+    assert torch.equal(out.view(-1).cpu(), torch.from_numpy(data))
+
+
+@pytest.mark.parametrize("N", _plan_changes())
+@pytest.mark.parametrize("variant,pb", CLUSTER_VARIANTS, ids=CLUSTER_IDS)
+def test_cluster_decoders_where_the_plan_changes(dev, variant, pb, N):
+    B = 32 * N
+    data = skewed(3 * B, seed=N)
+    blocks, tables = _encode_blocks(dev, data, variant, N, pb, B)
+    out = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B)
+    assert torch.equal(out.view(-1).cpu(), torch.from_numpy(data))
+
+
+@pytest.mark.parametrize("variant,pb", CLUSTER_VARIANTS, ids=CLUSTER_IDS)
+def test_cluster_decoders_every_cluster_size(dev, variant, pb):
+    """Every C the plan allows at 16384 lanes decodes as the plain version
+    does, and the card can schedule its clusters."""
+    from ryg_rans_tpu_torch.ops import decode_plan as dp
+    N, B = 16384, 32 * 16384
+    data = skewed(2 * B, seed=9)
+    blocks, tables = _encode_blocks(dev, data, variant, N, pb, B)
+    mod = rans64 if variant == rt.Variant.RANS64 else byte
+    for c in dp.cluster_sizes(N):
+        plan = dp.plan(variant.name, N, pb, cluster=c)
+        assert mod.max_active_clusters(plan, dev) >= 1
+        out = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan)
+        assert torch.equal(out.view(-1).cpu(), torch.from_numpy(data))
