@@ -10,7 +10,8 @@ Phases, each fatal on failure:
    equality of cells, states and symbols, launch group by launch group.
    WORD (K1/K2): at the main path's shapes (16384 lanes, prob_bits 11,
    eight 2^23-symbol blocks and a tail block), at prob_bits 12 with 1024
-   lanes, and on a prob_bits-15 one-symbol input.  BYTE/ALIAS (K3/K4) and
+   lanes, on a prob_bits-15 one-symbol input, and on uniform random bytes
+   at full width (prob_bits 15, two 2^23-symbol blocks and a tail).  BYTE/ALIAS (K3/K4) and
    RANS64 (K5/K6): at their full-width auto shapes (16384 lanes, 2^23-symbol
    blocks, BYTE prob_bits 14, ALIAS 16, RANS64 14 and 31; four full blocks
    and a tail), at BYTE prob_bits 16 (the 64 KB cum2sym), at RANS64
@@ -29,10 +30,11 @@ Phases, each fatal on failure:
    after it;
 4. time each kernel (CUDA events) and its plain version on the full-block
    launch group of its path, and the warm wall time of each entry point of
-   each path; for the cluster decoders K3 (BYTE, ALIAS) and K5 (RANS64
-   prob_bits 14 and 31), print the launch plan's cluster size C, the CTAs
-   (SMs at most) a launch group uses, ``cudaOccupancyMaxActiveClusters``,
-   and the group's and one block's time at every C the plan allows; then
+   each path; for the cluster decoders K1 (WORD), K3 (BYTE, ALIAS) and K5
+   (RANS64 prob_bits 14 and 31), print the launch plan's cluster size C,
+   the CTAs (SMs at most) a launch group uses,
+   ``cudaOccupancyMaxActiveClusters``, and the group's and one block's time
+   at every C the plan allows; for the encoders, the time a step; then
    trace one WORD ``compress`` and ``decompress`` with torch.profiler.
 
 It prints the card's name and power limit, the measurements, one
@@ -100,14 +102,24 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def random_full_width() -> np.ndarray:
+    """Two 2^23-symbol blocks and a tail of uniform random bytes: about a
+    refill a lane a step, the thinnest lead of the decoders' stream ring."""
+    return np.random.default_rng(5).integers(0, 256, (2 << 23) + 4567,
+                                             dtype=np.uint8)
+
+
 def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
     """Phase 2: each kernel against its plain version, launch group by
-    launch group as the main path cuts the input, at three shapes."""
+    launch group as the main path cuts the input, at four shapes."""
     import torch
 
     dev = torch.device("cuda")
     cases = [
         ("main path", RansConfig.auto(MAIN_LEN), data_main),
+        ("pb15 random full width",
+         RansConfig(prob_bits=15, n_lanes=16384, block_symbols=1 << 23),
+         random_full_width()),
         ("pb12 1024 lanes",
          RansConfig(prob_bits=12, n_lanes=1024, block_symbols=1 << 16),
          data_main[:(3 << 16) + 4567]),
@@ -167,6 +179,7 @@ class Codec:
         self.N, self.pb = cfg.n_lanes, cfg.prob_bits
         f, st = (torch.from_numpy(a).to(dev)
                  for a in host_prep.enc_tables(freqs, cum))
+        self.enc_kw = {}
         if self.variant == "RANS64":
             self.enc_tabs = (f, st)
             self.head_units = 2 * self.N  # u32 words
@@ -175,12 +188,17 @@ class Codec:
                 freqs, cum, self.pb)).to(dev)
                 if self.variant == "ALIAS" else None)
             self.enc_tabs = (f, st, remap)
+            self.enc_kw = {"table": torch.from_numpy(host_prep.byte_enc_table(
+                freqs, cum, self.pb, self.variant == "ALIAS")).to(dev)}
             self.head_units = 4 * self.N  # bytes
         self.dec_tabs = self.mod.dec_tables(cfg, freqs, cum, dev)
 
     def encode(self, syms, ref=False):
-        fn = self.mod.encode_blocks_ref if ref else self.mod.encode_blocks
-        return fn(syms, *self.enc_tabs, self.N, self.pb)
+        if ref:
+            return self.mod.encode_blocks_ref(syms, *self.enc_tabs, self.N,
+                                              self.pb)
+        return self.mod.encode_blocks(syms, *self.enc_tabs, self.N, self.pb,
+                                      **self.enc_kw)
 
     def decode(self, stream, size, ref=False, plan=None):
         if ref:
@@ -215,9 +233,7 @@ def new_cases(RansConfig, Variant, data_main):
                           block_symbols=bs)
 
     r64 = RansConfig.auto(NEW_LEN, R)
-    # two full blocks and a tail of uniform random bytes
-    rnd = np.random.default_rng(5).integers(0, 256, (2 << 23) + 4567,
-                                            dtype=np.uint8)
+    rnd = random_full_width()
     return [
         ("BYTE full width", RansConfig.auto(NEW_LEN, B), full),
         ("ALIAS full width", RansConfig.auto(NEW_LEN, A), full),
@@ -289,14 +305,42 @@ def check_new_kernels(ops, stats, host_prep, cases):
     return worst
 
 
-def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
-    """Phase 4 for K3-K6: encode and decode kernel on the full-block launch
-    group of ``cfg``'s path, their plain versions, and their bounds; the
-    decoder's launch plan and its times at every cluster size it allows."""
+def plan_report(variant, mod, N, pb, nb, B, decode, stream, stream1,
+                dec_ms, dec1_ms) -> None:
+    """Print a cluster decoder's launch plan, the CTAs its ``nb``-block group
+    uses, ``cudaOccupancyMaxActiveClusters``, and its group's and one
+    block's time at every cluster size C the plan allows.  ``decode(stream,
+    plan)`` launches the kernel once."""
     import torch
 
     from ryg_rans_tpu_torch.ops import decode_plan
 
+    plan = decode_plan.plan(variant, N, pb)
+    sweep = []
+    for C in decode_plan.cluster_sizes(N):
+        p = decode_plan.plan(variant, N, pb, cluster=C)
+        occ = mod.max_active_clusters(p, "cuda")
+        t_nb = cuda_ms(lambda: decode(stream, p), 20)
+        t_1 = cuda_ms(lambda: decode(stream1, p), 20)
+        sweep.append(f"C={C} ({p.threads} threads x {p.lanes_per_thread} "
+                     f"lanes, {p.smem_bytes} B shared, max active clusters "
+                     f"{occ}): {t_nb:.4f} ms, one block {t_1:.4f} ms")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{variant} prob_bits {pb} decode plan: C={plan.cluster}, "
+          f"{plan.threads} threads x {plan.lanes_per_thread} lanes a CTA, "
+          f"ring {plan.ring_bytes} B, {plan.smem_bytes} B dynamic shared; "
+          f"{nb} blocks -> {nb * plan.cluster} CTAs (SMs used, at most; the "
+          f"card has {n_sm}), cudaOccupancyMaxActiveClusters "
+          f"{mod.max_active_clusters(plan, 'cuda')}; "
+          f"{nb}-block group {dec_ms:.4f} ms, one block {dec1_ms:.4f} ms "
+          f"({dec_ms * 1e3 / (B // N):.3f} us a step); per C: "
+          + "; ".join(sweep), flush=True)
+
+
+def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
+    """Phase 4 for K3-K6: encode and decode kernel on the full-block launch
+    group of ``cfg``'s path, their plain versions, and their bounds; the
+    decoder's launch plan and its times at every cluster size it allows."""
     N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
     nb = data.size // B
     S = nb * B
@@ -316,26 +360,9 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
     # block's chain of steps, not the card's throughput
     stream1 = c.mod.prep_decode(blocks[:1], N, "cuda")
     dec1_ms = cuda_ms(lambda: c.decode(stream1, B), 20)
-    plan = decode_plan.plan(c.variant, N, pb)
-    sweep = []
-    for C in decode_plan.cluster_sizes(N):
-        p = decode_plan.plan(c.variant, N, pb, cluster=C)
-        occ = c.mod.max_active_clusters(p, "cuda")
-        t_nb = cuda_ms(lambda: c.decode(stream, B, plan=p), 20)
-        t_1 = cuda_ms(lambda: c.decode(stream1, B, plan=p), 20)
-        sweep.append(f"C={C} ({p.threads} threads x {p.lanes_per_thread} "
-                     f"lanes, {p.smem_bytes} B shared, max active clusters "
-                     f"{occ}): {t_nb:.4f} ms, one block {t_1:.4f} ms")
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"{c.variant} prob_bits {pb} decode plan: C={plan.cluster}, "
-          f"{plan.threads} threads x {plan.lanes_per_thread} lanes a CTA, "
-          f"ring {plan.ring_bytes} B, {plan.smem_bytes} B dynamic shared; "
-          f"{nb} blocks -> {nb * plan.cluster} CTAs (SMs used, at most; the "
-          f"card has {n_sm}), cudaOccupancyMaxActiveClusters "
-          f"{c.mod.max_active_clusters(plan, 'cuda')}; "
-          f"{nb}-block group {dec_ms:.4f} ms, one block {dec1_ms:.4f} ms "
-          f"({dec_ms * 1e3 / (B // N):.3f} us a step); per C: "
-          + "; ".join(sweep), flush=True)
+    plan_report(c.variant, c.mod, N, pb, nb, B,
+                lambda s, p: c.decode(s, B, plan=p), stream, stream1, dec_ms,
+                dec1_ms)
     units = sum(int(b.size) for b in blocks)
     M = 1 << pb
     # bytes: symbols in, dense cells and states out, tables in (decode:
@@ -361,7 +388,8 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
     renorms = units - nb * c.head_units
     dec_bound = bound_ms(S + wb * units + dec_tab, dec_ops * S + 2 * renorms)
     print(f"{c.variant} prob_bits {pb}: encode kernel {enc_ms:.4f} ms "
-          f"({S / enc_ms / 1e6:.3f} GB/s), plain {enc_plain_ms:.2f} ms, "
+          f"({S / enc_ms / 1e6:.3f} GB/s, {enc_ms * 1e6 / (B // N):.1f} ns "
+          f"a step), plain {enc_plain_ms:.2f} ms, "
           f"bound {enc_bound[0]:.4f} ms ({enc_bound[1]}); decode kernel "
           f"{dec_ms:.4f} ms ({S / dec_ms / 1e6:.3f} GB/s), plain "
           f"{dec_plain_ms:.2f} ms, bound {dec_bound[0]:.4f} ms "
@@ -643,12 +671,15 @@ def main(argv=None) -> int:
                                                    pb), 20)
     dec_plain_ms = cuda_ms(lambda: rt_word.decode_blocks_ref(
         *stream, c2s, fd, cd, B, pb), 1)
-    # one block is one CTA: if one block takes as long as nb of them, the
-    # kernel's time is one CTA's chain of dependent steps, not the card's
-    # throughput
+    # one block against nb blocks: equal times mean the time is one block's
+    # chain of dependent steps, not the card's throughput
     stream1 = rt_word.prep_decode(blocks[:1], N, "cuda")
     dec1_ms = cuda_ms(lambda: rt_word.decode_blocks(*stream1, c2s, fd, cd,
                                                     B, pb), 20)
+    plan_report("WORD", rt_word, N, pb, nb, B,
+                lambda s, p: rt_word.decode_blocks(*s, c2s, fd, cd, B, pb,
+                                                   plan=p),
+                stream, stream1, dec_ms, dec1_ms)
     n_words = sum(int(b.size) for b in blocks)
     renorms = n_words - nb * 2 * N
     # bytes: the words in, symbols out, tables in; ops: mask, shift,
@@ -656,13 +687,14 @@ def main(argv=None) -> int:
     # or per refill
     dec_bound = bound_ms(S + 2 * n_words + (1 << pb) + 2 * 256 * 4,
                          6 * S + 2 * renorms)
-    print(f"encode kernel {enc_ms:.4f} ms ({S / enc_ms / 1e6:.3f} GB/s), "
+    print(f"encode kernel {enc_ms:.4f} ms ({S / enc_ms / 1e6:.3f} GB/s, "
+          f"{enc_ms * 1e6 / (B // N):.1f} ns a step), "
           f"plain {enc_plain_ms:.2f} ms, bound {enc_bound[0]:.4f} ms "
           f"({enc_bound[1]}); decode kernel {dec_ms:.4f} ms "
           f"({S / dec_ms / 1e6:.3f} GB/s), plain {dec_plain_ms:.2f} ms, "
           f"bound {dec_bound[0]:.4f} ms ({dec_bound[1]}) "
           f"[{nb} blocks x {B} symbols, {N} lanes, prob_bits {pb}]; "
-          f"decode kernel on 1 block (1 CTA) {dec1_ms:.4f} ms",
+          f"decode kernel on 1 block {dec1_ms:.4f} ms",
           flush=True)
 
     # K3/K4 on the BYTE and the ALIAS path, K5/K6 on the RANS64 path (the

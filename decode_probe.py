@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""What sets the step time of the cluster decoders K3 and K5, on one GPU.
+"""What sets the step time of the cluster decoders K1, K3 and K5 and of the
+BYTE/ALIAS encoder K4, on one GPU.
 
-    python3 decode_probe.py [--out DIR]
+    python3 decode_probe.py [--out DIR] [--part all|decode|encode]
 
-Builds the decoders (``csrc/byte_decode.cu``, ``csrc/rans64_decode.cu``)
-several times, each from a copy of ``csrc/`` with one part of the decode
-step taken out, and times each build on the same full-width launch groups
-(4 blocks of 2^23 symbols, 16384 lanes: BYTE prob_bits 14, ALIAS 16,
-RANS64 14 and 31) at cluster sizes 8 and 16.  The gap between two builds is
-what the part costs on the step's chain.  Builds, from the whole step down:
+Builds the decoders (``csrc/word_decode.cu``, ``csrc/byte_decode.cu``,
+``csrc/rans64_decode.cu``) several times, each from a copy of ``csrc/``
+with one part of the decode step taken out, and times each build on the
+same full-width launch groups (16384 lanes, 2^23-symbol blocks: WORD
+prob_bits 11 on 8 blocks, the main path's group; BYTE prob_bits 14, ALIAS
+16, RANS64 14 and 31 on 4 blocks) at cluster sizes 8 and 16.  The gap
+between two builds is what the part costs on the step's chain.  Builds,
+from the whole step down:
 
 - ``kernel``: the sources as they are (exact: checked against the input);
 - ``barrier``: the exchange of CTA totals through one cluster barrier a
@@ -21,11 +24,33 @@ what the part costs on the step's chain.  Builds, from the whole step down:
 - ``no_exchange_scan_wait``: also no wait for the stream ring's copies.
 
 Only ``kernel`` and ``barrier`` decode correctly; the others time a step
-that skips work the decode needs.  The copies of ``csrc/`` go to
-``DIR/probe_src/`` (default ``smoke_out/``, ignored by git); the build goes
-to the package's ``_build/``.  Prints the card's name and power limit, one
-line per (build, shape, C), and the same lines as JSON to
-``DIR/decode_probe.json``.
+that skips work the decode needs.
+
+Then builds K4 (``csrc/byte_encode.cu``) the same way and times each build
+on BYTE prob_bits 14 and ALIAS prob_bits 16 (4 blocks of 2^23 symbols,
+16384 lanes), against the plain version's cells and states:
+
+- ``kernel``: the source as it is;
+- ``global_symbols``: each step loads its symbol from device memory, with
+  no tiles staged in shared memory;
+- ``const_symbol``: no symbol load at all (each lane codes one symbol);
+- ``no_prefetch``: each step loads its symbol and table row itself, on the
+  chain, in place of the software pipeline that loads them a step ahead;
+- ``hw_divide``: the quotient by the u32 divide in place of the reciprocal;
+- ``shift_divide``: the quotient as a shift (no divide, no reciprocal);
+- ``global_remap``: ALIAS reads its remap from device memory through the
+  read-only cache instead of shared memory;
+- ``no_remap``: ALIAS skips the remap lookup;
+- ``lanes2`` / ``lanes4``: 2 or 4 lanes a thread in place of 1 (256 or
+  128 threads a CTA of 512 lanes);
+- ``cta256`` / ``cta1024``: CTAs of 256 or 1024 lanes in place of 512.
+
+``kernel``, ``global_symbols``, ``no_prefetch``, ``global_remap``, and the
+``lanes*`` and ``cta*`` builds encode exactly, ``hw_divide`` too where no symbol has freq 1.  The copies
+of ``csrc/`` go to ``DIR/probe_src/`` (default ``smoke_out/``, ignored by
+git); the build goes to the package's ``_build/``.  Prints the card's name
+and power limit, one line per (build, shape, C), and the same lines as JSON
+to ``DIR/decode_probe.json``.
 """
 
 from __future__ import annotations
@@ -104,9 +129,168 @@ def patch(src: Path, dst: Path, build: str) -> None:
                            "  return count * threadIdx.x;\n"))
 
 
+ENCODE_PATCHES = {
+    "global_symbols": [
+        (r"  const int per_row = a\.cta_lanes >> 4;",
+         "  return;  // no tiles\n  const int per_row = a.cta_lanes >> 4;"),
+        (r"return tile\[\(\(t > lo \? t : lo\) - lo\) \* a\.cta_lanes "
+         r"\+ k \* nthreads\];",
+         "return src[static_cast<size_t>(t > lo ? t : lo) * a.n_lanes + "
+         "tid + k * nthreads];")],
+    "const_symbol": [
+        (r"  const int per_row = a\.cta_lanes >> 4;",
+         "  return;  // no tiles\n  const int per_row = a.cta_lanes >> 4;"),
+        (r"return tile\[\(\(t > lo \? t : lo\) - lo\) \* a\.cta_lanes "
+         r"\+ k \* nthreads\];",
+         "return 32 + ((tid + k) & 63);")],
+    "no_prefetch": [
+        (r"step<ALIAS>\(x\[k\], e\[k\], s_remap, pb\)",
+         "step<ALIAS>(x[k], s_tab[symbol(t, k)], s_remap, pb)")],
+    "hw_divide": [
+        (r"__umulhi\(xs, e\.y\) >> shift;", "xs / freq;"),
+        (r"\(__umulhi\(xs, e\.y\) >> shift\)", "(xs / ((1u << pb) - low))")],
+    "shift_divide": [  # the remap index masked to stay in the table
+        (r"__umulhi\(xs, e\.y\) >> shift;", "xs >> shift;"),
+        (r"\(__umulhi\(xs, e\.y\) >> shift\)", "(xs >> shift)"),
+        (r"s_remap\[xs - q \* freq \+ low\]",
+         "s_remap[(xs - q * freq + low) & ((1u << pb) - 1)]")],
+    "global_remap": [
+        (r"s_remap\[xs - q \* freq \+ low\]",
+         "__ldg(s_remap + xs - q * freq + low)"),
+        (r"step<ALIAS>\(x\[k\], e\[k\], s_remap, pb\)",
+         "step<ALIAS>(x[k], e[k], a.remap, pb)"),
+        (r"for \(int i = tid; i < \(1 << pb\) / 8; i \+= nthreads\) s\[i\] = g\[i\];",
+         "(void)g; (void)s;"),
+        (r"\(remap \? sizeof\(uint16_t\) << prob_bits : 0\)", "0")],
+    "no_remap": [
+        (r"s_remap\[xs - q \* freq \+ low\]", "(xs - q * freq + low)")],
+    "lanes2": [(r"kLanesPerThread = 1;", "kLanesPerThread = 2;")],
+    "lanes4": [(r"kLanesPerThread = 1;", "kLanesPerThread = 4;")],
+    "cta256": [(r"kCtaLanes = 512;", "kCtaLanes = 256;")],
+    "cta1024": [(r"kCtaLanes = 512;", "kCtaLanes = 1024;")],
+}
+
+
+def patch_encoder(src: Path, dst: Path, build: str) -> None:
+    """Copy ``src`` (csrc/) to ``dst`` with byte_encode.cu patched as
+    ``build`` says."""
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(src, dst)
+    f = dst / "byte_encode.cu"
+    text = f.read_text()
+    for pattern, repl in ENCODE_PATCHES.get(build, []):
+        text = _sub(text, pattern, repl)
+    f.write_text(text)
+
+
+def probe_encoder(out_dir: Path, csrc: Path, _kernels, ops, stats,
+                  host_prep, RansConfig, Variant) -> list[dict]:
+    """The K4 builds on BYTE pb 14 and ALIAS pb 16; one row per (build,
+    shape)."""
+    import torch
+
+    N, B, nb = 16384, 1 << 23, 4
+    data = chip_smoke.skewed(np.random.default_rng(2), nb * B)
+    syms = torch.from_numpy(data).cuda().view(nb, B)
+    shapes = []
+    for v, pb in [(Variant.BYTE, 14), (Variant.ALIAS, 16)]:
+        cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N, block_symbols=B)
+        freqs, cum = stats.build_model(data, pb)
+        c = chip_smoke.Codec(ops, host_prep, cfg, freqs, cum, "cuda")
+        shapes.append((f"{v.name} pb{pb}", c, c.encode(syms, ref=True)))
+    rows = []
+    for build in ("kernel",) + tuple(ENCODE_PATCHES):
+        src = out_dir / "probe_src" / f"encode_{build}"
+        patch_encoder(csrc, src, build)
+        _kernels.CSRC = src.resolve()
+        _kernels._libs.clear()
+        _kernels.load(["byte_encode"])
+        for label, c, (cells_r, states_r) in shapes:
+            if build in ("global_remap", "no_remap") and c.variant != "ALIAS":
+                continue
+            cells, states = c.encode(syms)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(cells, cells_r)
+                         and torch.equal(states, states_r))
+            del cells, states
+            ms = chip_smoke.cuda_ms(lambda: c.encode(syms), 20)
+            row = {"build": f"encode {build}", "shape": label, "ms": ms,
+                   "ns_per_step": ms * 1e6 / (B // N), "exact": exact}
+            rows.append(row)
+            print(f"encode {build} {label}: {ms:.4f} ms for {nb} blocks, "
+                  f"{row['ns_per_step']:.1f} ns a step, exact={exact}",
+                  flush=True)
+    return rows
+
+
+def probe_decoders(out_dir: Path, csrc: Path, _kernels, ops, stats,
+                   host_prep, RansConfig, Variant) -> list[dict]:
+    """The decoder builds on every shape at C = 8 and 16; one row per
+    (build, shape, C)."""
+    import torch
+
+    from ryg_rans_tpu_torch.ops import decode_plan
+
+    N, B = 16384, 1 << 23
+    data = chip_smoke.skewed(np.random.default_rng(1), 8 * B)
+    shapes = []
+    # WORD: the main path's 8-block group
+    cfg = RansConfig(prob_bits=11, n_lanes=N, block_symbols=B)
+    freqs, cum = stats.build_model(data, 11)
+    syms = torch.from_numpy(data).cuda().view(8, B)
+    tabs = [torch.from_numpy(a).cuda()
+            for a in host_prep.dec_tables(freqs, cum, 11)]
+    wstream = ops.word.prep_decode(
+        ops.word.encode(cfg, syms.view(-1), freqs, cum), N, "cuda")
+
+    def word_decode(plan):
+        return ops.word.decode_blocks(*wstream, *tabs, B, 11, plan=plan)
+
+    shapes.append(("WORD pb11", "WORD", 11, 8, word_decode, syms))
+    for v, pb in [(Variant.BYTE, 14), (Variant.ALIAS, 16),
+                  (Variant.RANS64, 14), (Variant.RANS64, 31)]:
+        cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N,
+                         block_symbols=B)
+        freqs, cum = stats.build_model(data[:4 * B], pb)
+        c = chip_smoke.Codec(ops, host_prep, cfg, freqs, cum, "cuda")
+        syms4 = syms[:4]
+        blocks = c.mod.encode(cfg, syms4.reshape(-1), freqs, cum)
+        stream = c.mod.prep_decode(blocks, N, "cuda")
+        shapes.append((f"{v.name} pb{pb}", v.name, pb, 4,
+                       lambda plan, c=c, stream=stream:
+                       c.decode(stream, B, plan=plan), syms4))
+    rows = []
+    for build in ("kernel", "barrier", "no_exchange", "no_exchange_scan",
+                  "no_exchange_scan_wait"):
+        src = out_dir / "probe_src" / build
+        patch(csrc, src, build)
+        _kernels.CSRC = src.resolve()
+        _kernels._libs.clear()
+        _kernels.load(["word_decode", "byte_decode", "rans64_decode"])
+        for label, variant, pb, nb, decode, want in shapes:
+            for C in (8, 16):
+                p = decode_plan.plan(variant, N, pb, cluster=C)
+                out = decode(p)
+                torch.cuda.synchronize()
+                exact = bool(torch.equal(out, want))
+                del out
+                ms = chip_smoke.cuda_ms(lambda: decode(p), 20)
+                row = {"build": build, "shape": label, "cluster": C,
+                       "ms": ms, "us_per_step": ms * 1e3 / (B // N),
+                       "exact": exact}
+                rows.append(row)
+                print(f"{build} {label} C={C}: {ms:.4f} ms for {nb} blocks, "
+                      f"{row['us_per_step']:.3f} us a step, exact={exact}",
+                      flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="smoke_out")
+    ap.add_argument("--part", choices=("all", "decode", "encode"),
+                    default="all", help="probe the decoders, K4, or both")
     args = ap.parse_args(argv)
 
     import torch
@@ -118,55 +302,26 @@ def main(argv=None) -> int:
     from ryg_rans_tpu_torch import _kernels, ops
     from ryg_rans_tpu_torch.config import RansConfig, Variant
     from ryg_rans_tpu_torch.models import stats
-    from ryg_rans_tpu_torch.ops import decode_plan, host_prep
+    from ryg_rans_tpu_torch.ops import host_prep
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     out_dir = Path(args.out)
-    N, B, nb = 16384, 1 << 23, 4
-    data = chip_smoke.skewed(np.random.default_rng(1), nb * B)
-    shapes = []
-    for v, pb in [(Variant.BYTE, 14), (Variant.ALIAS, 16),
-                  (Variant.RANS64, 14), (Variant.RANS64, 31)]:
-        cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N,
-                         block_symbols=B)
-        freqs, cum = stats.build_model(data, pb)
-        c = chip_smoke.Codec(ops, host_prep, cfg, freqs, cum, "cuda")
-        syms = torch.from_numpy(data).cuda().view(nb, B)
-        blocks = c.mod.encode(cfg, syms.view(-1), freqs, cum)
-        shapes.append((f"{v.name} pb{pb}", c,
-                       c.mod.prep_decode(blocks, N, "cuda"), syms))
     csrc = _kernels.CSRC
     rows = []
-    for build in ("kernel", "barrier", "no_exchange", "no_exchange_scan",
-                  "no_exchange_scan_wait"):
-        src = out_dir / "probe_src" / build
-        patch(csrc, src, build)
-        _kernels.CSRC = src.resolve()
-        _kernels._libs.clear()
-        _kernels.load(["byte_decode", "rans64_decode"])
-        for label, c, stream, syms in shapes:
-            for C in (8, 16):
-                p = decode_plan.plan(c.variant, N, c.pb, cluster=C)
-                out = c.decode(stream, B, plan=p)
-                torch.cuda.synchronize()
-                exact = bool(torch.equal(out, syms))
-                ms = chip_smoke.cuda_ms(lambda: c.decode(stream, B, plan=p),
-                                        20)
-                row = {"build": build, "shape": label, "cluster": C,
-                       "ms": ms, "us_per_step": ms * 1e3 / (B // N),
-                       "exact": exact}
-                rows.append(row)
-                print(f"{build} {label} C={C}: {ms:.4f} ms for {nb} blocks, "
-                      f"{row['us_per_step']:.3f} us a step, exact={exact}",
-                      flush=True)
+    probes = {"decode": probe_decoders, "encode": probe_encoder}
+    for part, probe in probes.items():
+        if args.part in ("all", part):
+            rows += probe(out_dir, csrc, _kernels, ops, stats, host_prep,
+                          RansConfig, Variant)
     _kernels.CSRC = csrc
     _kernels._libs.clear()
     (out_dir / "decode_probe.json").write_text(json.dumps(
         {"device": smi.splitlines()[0], "rows": rows}, indent=1))
-    bad = [r for r in rows if r["build"] in ("kernel", "barrier")
+    bad = [r for r in rows if r["build"] in ("kernel", "barrier",
+                                             "encode kernel")
            and not r["exact"]]
     return 1 if bad else 0
 

@@ -11,7 +11,7 @@ or a failed build raises.
 
 Every pointer and the stream pass as ``ctypes.c_void_p``, every size as
 ``ctypes.c_int``; each C entry returns ``cudaGetLastError()`` after its
-launch, and :func:`call` raises when that is not 0.  The two cluster
+launch, and :func:`call` raises when that is not 0.  The three cluster
 decoders also export an occupancy query (:func:`query`).
 """
 
@@ -39,8 +39,9 @@ _I = ctypes.c_int
 #: pointer to the int they fill.
 SIGNATURES = {
     "word_encode": ("word_encode", [_P] * 5 + [_I] * 4 + [_P]),
-    "word_decode": ("word_decode", [_P] * 8 + [_I] * 4 + [_P]),
-    "byte_encode": ("byte_encode", [_P] * 6 + [_I] * 4 + [_P]),
+    "word_decode": ("word_decode", [_P] * 8 + [_I] * 8 + [_P]),
+    "word_decode_occupancy": ("word_decode", [_I] * 6 + [_P]),
+    "byte_encode": ("byte_encode", [_P] * 5 + [_I] * 4 + [_P]),
     "byte_decode": ("byte_decode", [_P] * 9 + [_I] * 9 + [_P]),
     "byte_decode_occupancy": ("byte_decode", [_I] * 7 + [_P]),
     "rans64_encode": ("rans64_encode", [_P] * 5 + [_I] * 4 + [_P]),

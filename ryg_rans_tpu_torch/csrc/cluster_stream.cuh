@@ -1,5 +1,5 @@
 // One container block per thread-block cluster: the pieces shared by the
-// BYTE/ALIAS (K3) and RANS64 (K5) decoders.
+// WORD (K1), BYTE/ALIAS (K3) and RANS64 (K5) decoders.
 //
 // A block's N lanes are split over a cluster of C CTAs; CTA rank r owns
 // lanes [r N / C, (r + 1) N / C), so rank order is the format's lane order
@@ -18,8 +18,8 @@
 // the end (no CTA exits while a peer may still write to it).
 //
 // The block's stream is staged in shared memory ahead of its use.  One
-// step consumes at most `window` units (bytes or words), all of them in
-// [cursor, cursor + window).  Each CTA keeps a ring of kRingChunks = 9
+// step consumes at most `window` units (bytes, u16 or u32 words), all of
+// them in [cursor, cursor + window).  Each CTA keeps a ring of kRingChunks = 9
 // chunks of window / 4 units (2.25 windows) and, right after the scan's
 // barrier of each step, requests with cp.async (16 bytes a piece,
 // zero-filled past the body) every chunk up to 9 after the one that holds
@@ -97,11 +97,16 @@ struct Exchange {
   }
 };
 
-// The block's stream body staged in a shared-memory ring of 32-bit or 8-bit
-// units.  Every member but `buf` is uniform across the CTA, and every
+// The block's stream body staged in a shared-memory ring of 8-, 16- or
+// 32-bit units.  Every member but `buf` is uniform across the CTA, and every
 // thread calls request() and wait() at the same points.
 template <typename T>
 struct Ring {
+  static_assert(sizeof(T) == 1 || sizeof(T) == 2 || sizeof(T) == 4,
+                "a ring unit is 1, 2 or 4 bytes");
+  // log2(sizeof(T)): a chunk of 2^shift units is 2^(shift + kUnitShift) B
+  static constexpr uint32_t kUnitShift =
+      sizeof(T) == 4 ? 2u : (sizeof(T) == 2 ? 1u : 0u);
   T* buf;                // shared: kRingChunks chunks of 2^shift units
   const uint8_t* src;    // global: the body's start rounded down to 16 B
   uint32_t delta;        // units from src to the body's first unit
@@ -145,7 +150,7 @@ struct Ring {
         upto < static_cast<long long>(n_chunks) ? upto : n_chunks);
     if (hi > issued) {
       // a chunk is 2^pshift pieces of 16 bytes
-      const uint32_t cbytes_shift = shift + (sizeof(T) == 4 ? 2u : 0u);
+      const uint32_t cbytes_shift = shift + kUnitShift;
       const uint32_t pshift = cbytes_shift - 4;
       const uint32_t total = (hi - issued) << pshift;
       const uint32_t base =
@@ -255,7 +260,7 @@ int launch_clusters(Kernel kernel, const Args& a, const Launch& l) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks of a launch plan that both decoders make: cluster a power of two
+// Checks of a launch plan that every cluster decoder makes: cluster a power of two
 // up to kMaxCluster; whole warps, up to kMaxThreads; L = n_lanes /
 // (cluster * threads) lanes a thread, a power of two up to 16; a chunk of
 // window / 4 bytes, a power of two of at least one 16-byte piece.  Returns

@@ -1,4 +1,5 @@
-// Pieces shared by the BYTE/ALIAS (K3) and RANS64 (K5) decoders.
+// Pieces shared by the WORD (K1), BYTE/ALIAS (K3) and RANS64 (K5)
+// decoders.
 //
 // A decoder CTA owns a contiguous run of a container block's lanes (the
 // block is one thread-block cluster, cluster_stream.cuh); each of its

@@ -51,7 +51,8 @@ def check_config(cfg: RansConfig) -> None:
 
 def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
                   start: torch.Tensor, remap: torch.Tensor | None,
-                  n_lanes: int, prob_bits: int):
+                  n_lanes: int, prob_bits: int,
+                  table: torch.Tensor | None = None):
     """Dense encode of ``nb`` blocks (K4, ``csrc/byte_encode.cu``).
 
     syms: uint8 [nb, S] with S a multiple of n_lanes; freq, start: int32
@@ -59,7 +60,10 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
     (u16 bits).  Returns (cells int32 [nb, S], states int32 [nb, n_lanes]):
     cell ``k << 16 | fwd0 << 8 | fwd1`` where a lane wrote k = 1 or 2 renorm
     bytes at that step (fwd0 first in stream order, fwd1 = 0 when k = 1),
-    else 0, and the final states as u32 bits.
+    else 0, and the final states as u32 bits.  The kernel reads ``table``,
+    ``host_prep.byte_enc_table`` of the same model and variant (int32
+    [256, 4] on the data's device), in place of freq and start; without
+    it, the wrapper builds it from them (a copy to the host).
     """
     if (syms.dtype != torch.uint8 or syms.dim() != 2
             or syms.shape[1] % n_lanes or not syms.is_contiguous()):
@@ -76,13 +80,23 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
         return encode_blocks_ref(syms, freq, start, remap, n_lanes, prob_bits)
     if syms.device.type != "cuda":
         raise ValueError(f"no BYTE/ALIAS encode kernel for {syms.device}")
+    if table is None:
+        table = torch.from_numpy(host_prep.byte_enc_table(
+            freq.cpu().numpy().view(np.uint32),
+            start.cpu().numpy().view(np.uint32), prob_bits,
+            remap is not None)).to(syms.device)
+    if table.dtype != torch.int32 or table.shape != (256, 4):
+        raise ValueError("table must be int32 [256, 4]")
+    check_tables(syms, table)
+    if syms.data_ptr() % 16:
+        syms = syms.clone()  # the kernel stages symbols in 16-byte pieces
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int32, device=syms.device)
     states = torch.empty((nb, n_lanes), dtype=torch.int32,
                          device=syms.device)
     if nb:
         _kernels.call("byte_encode", syms.device, syms.data_ptr(),
-                      freq.data_ptr(), start.data_ptr(),
+                      table.data_ptr(),
                       None if remap is None else remap.data_ptr(),
                       cells.data_ptr(), states.data_ptr(), nb, n_lanes,
                       S // n_lanes, prob_bits)
@@ -177,12 +191,7 @@ def decode_blocks(x0: torch.Tensor, data: torch.Tensor,
     if x0.device.type != "cuda":
         raise ValueError(f"no BYTE/ALIAS decode kernel for {x0.device}")
     variant = "ALIAS" if alias else "BYTE"
-    if plan is None:
-        plan = decode_plan.plan(variant, N, prob_bits)
-    if (plan.variant, plan.n_lanes, plan.prob_bits) != (variant, N,
-                                                        prob_bits):
-        raise ValueError(f"plan {plan} is not for {variant} at {N} lanes, "
-                         f"prob_bits {prob_bits}")
+    plan = decode_plan.for_shape(plan, variant, N, prob_bits)
     out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
     if nb:
         ptrs = [t.data_ptr() for t in tables] + [None] * (4 - len(tables))
@@ -300,17 +309,21 @@ def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
     if padded.numel() % (4 * N):
         raise ValueError("input must be padded to a multiple of 4*n_lanes")
     dev = padded.device
+    alias = cfg.variant == Variant.ALIAS
     freq, start = (torch.from_numpy(a).to(dev)
                    for a in host_prep.enc_tables(freqs, cum_freqs))
     remap = (torch.from_numpy(host_prep.alias_remap(freqs, cum_freqs, pb))
-             .to(dev) if cfg.variant == Variant.ALIAS else None)
+             .to(dev) if alias else None)
+    table = torch.from_numpy(host_prep.byte_enc_table(
+        freqs, cum_freqs, pb, alias)).to(dev)
     out: list[np.ndarray] = []
     pos = 0
     for _, nb, size in groups(block_sizes(cfg.block_symbols,
                                           padded.numel()), GROUP_SYMBOLS):
         syms = padded[pos:pos + nb * size].view(nb, size)
         pos += nb * size
-        cells, states = encode_blocks(syms, freq, start, remap, N, pb)
+        cells, states = encode_blocks(syms, freq, start, remap, N, pb,
+                                      table)
         heads, body, counts = compact_emissions(cells, states)
         del cells
         out += assemble_blocks(heads.cpu().numpy(), body.cpu().numpy(),

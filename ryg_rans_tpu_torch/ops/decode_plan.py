@@ -1,13 +1,14 @@
-"""Launch plan of the cluster decoders K3 (``csrc/byte_decode.cu``, BYTE and
-ALIAS) and K5 (``csrc/rans64_decode.cu``, RANS64).
+"""Launch plan of the cluster decoders K1 (``csrc/word_decode.cu``, WORD), K3
+(``csrc/byte_decode.cu``, BYTE and ALIAS) and K5 (``csrc/rans64_decode.cu``,
+RANS64).
 
 A container block of N lanes decodes on one thread-block cluster of C CTAs
 (``csrc/cluster_stream.cuh``): CTA rank r owns lanes [r N / C, (r + 1) N /
 C), each of its threads L consecutive lanes.  Each CTA stages the block's
 stream in a shared-memory ring of 9 chunks of a quarter window, where a
 window is what one step can consume at most: 2N bytes for BYTE and ALIAS
-(two renorm bytes a lane), N words = 4N bytes for RANS64.  The tables sit
-after the ring.  The plan depends on the shape alone; the wrappers pass it
+(two renorm bytes a lane), N u16 words = 2N bytes for WORD and N u32 words =
+4N bytes for RANS64 (one word a lane).  The tables sit after the ring.  The plan depends on the shape alone; the wrappers pass it
 to the C entry, which checks it again.
 """
 
@@ -33,7 +34,9 @@ LANES_PER_CTA = 2048
 MAX_THREADS = 512
 #: Fewest lanes a CTA takes: four warps of one lane a thread.
 MIN_LANES_PER_CTA = 128
-VARIANTS = ("BYTE", "ALIAS", "RANS64")
+VARIANTS = ("WORD", "BYTE", "ALIAS", "RANS64")
+#: Largest prob_bits each decoder takes.
+MAX_PROB_BITS = {"WORD": 15, "BYTE": 16, "ALIAS": 16, "RANS64": 31}
 LANE_COUNTS = tuple(1 << k for k in range(7, 15))  # 128 .. 16384
 
 
@@ -68,6 +71,8 @@ def table_bytes(variant: str, prob_bits: int) -> int:
         return (256 + 3 * 512) * 4  # divider, then sym, freq, adjust
     if variant == "BYTE":
         return 2 * 256 * 4 + (1 << prob_bits)  # freq, cum, cum2sym
+    if variant == "WORD":
+        return 256 * 4 + (1 << prob_bits)  # freq << 16 | cum, cum2sym
     # freq, cum[257] padded to 260, and cum2sym up to prob_bits 16
     return (256 + 260) * 4 + ((1 << prob_bits) if prob_bits <= 16 else 0)
 
@@ -82,12 +87,12 @@ def cluster_sizes(n_lanes: int) -> list[int]:
 
 def plan(variant: str, n_lanes: int, prob_bits: int,
          cluster: int | None = None) -> DecodePlan:
-    """The launch plan of ``variant`` ("BYTE", "ALIAS" or "RANS64") at
+    """The launch plan of ``variant`` (one of :data:`VARIANTS`) at
     ``n_lanes`` and ``prob_bits``; ``cluster`` overrides C (one of
     :func:`cluster_sizes`), for measuring the other sizes."""
     if variant not in VARIANTS:
         raise ValueError(f"no cluster decoder for {variant}")
-    max_pb = 31 if variant == "RANS64" else 16
+    max_pb = MAX_PROB_BITS[variant]
     if n_lanes not in LANE_COUNTS or not 9 <= prob_bits <= max_pb:
         raise ValueError(f"{variant} decode takes 128-16384 lanes (a power "
                          f"of two) and prob_bits 9-{max_pb}, not "
@@ -109,3 +114,16 @@ def plan(variant: str, n_lanes: int, prob_bits: int,
     if p.smem_bytes > MAX_SHARED - STATIC_SHARED:
         raise ValueError(f"plan needs {p.smem_bytes} bytes of shared memory")
     return p
+
+
+def for_shape(given: DecodePlan | None, variant: str, n_lanes: int,
+              prob_bits: int) -> DecodePlan:
+    """``given``, or the default plan when it is None; raise ValueError when
+    ``given`` is for another variant or shape than the launch's."""
+    if given is None:
+        return plan(variant, n_lanes, prob_bits)
+    if (given.variant, given.n_lanes, given.prob_bits) != (variant, n_lanes,
+                                                           prob_bits):
+        raise ValueError(f"plan {given} is not for {variant} at {n_lanes} "
+                         f"lanes, prob_bits {prob_bits}")
+    return given

@@ -1,16 +1,18 @@
 """Host-side model tables in the layout the port's kernels read.
 
-Each kernel copies its tables into shared memory at start (the ALIAS remap,
-up to 128 KB, stays in global memory, where L1 and L2 hold it).  Values
-that are unsigned 32-bit in the reference travel as ``int32`` arrays
-holding the bit pattern.  The reference package's sym4 packing, mod-4
-interleaved segment tables, bisect keys and reciprocal tables served the
-TPU's gathers and its lack of 64-bit integers, and have no counterpart here.
+Each kernel copies its tables into shared memory at start.  Values that
+are unsigned 32-bit in the reference travel as ``int32`` arrays holding the
+bit pattern.  The reference package's sym4 packing, mod-4 interleaved
+segment tables and bisect keys served the TPU's gathers and its lack of
+64-bit integers, and have no counterpart here.
 
 * WORD and BYTE decode: ``uint8`` cum2sym of 2^prob_bits entries, then the
   symbol's ``freq`` and ``cum`` (separate arrays: at BYTE prob_bits 16 a
   one-symbol model has freq 2^16, which no 16-bit field holds).
-* Encode (every variant): ``freq`` and ``start`` (= cum) per symbol.
+* Encode (every variant): ``freq`` and ``start`` (= cum) per symbol; the
+  plain versions and the WORD and RANS64 kernels read these.  The BYTE/ALIAS
+  kernel reads one 16-byte row per symbol instead, with the reciprocal of
+  ``models/tables.py`` in place of the divide (:func:`byte_enc_table`).
 * ALIAS decode: the absolute bucket divider [256], then per half
   (bucket2 = 2*bucket + (slot < divider)) the symbol, its freq and the
   signed slot adjust [512].  ALIAS encode adds the flat remap [2^prob_bits].
@@ -23,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..models import alias as alias_mod
-from ..models import stats
+from ..models import stats, tables
 
 
 def _i32(a) -> np.ndarray:
@@ -43,6 +45,24 @@ def enc_tables(freqs, cum_freqs):
     """-> (freq int32[256], start int32[256]), u32 bits: RANS64 prob_bits 31
     reaches 2^31 in both."""
     return _i32(freqs), _i32(np.asarray(cum_freqs)[:256])
+
+
+def byte_enc_table(freqs, cum_freqs, prob_bits: int,
+                   alias: bool) -> np.ndarray:
+    """BYTE / ALIAS encode kernel -> int32 [256, 4], u32 bits: per symbol
+    (x_max, rcp_freq, BYTE bias | ALIAS freq, BYTE cmpl_freq | ALIAS start,
+    with rcp_shift in the top 8 bits of the last word).  A step is then
+    ``q = mulhi(x, rcp_freq) >> rcp_shift`` and BYTE ``x += bias + q *
+    cmpl_freq``, ALIAS ``x = q << prob_bits | remap[x - q * freq + start]``,
+    where ALIAS takes ``q = x`` at ``freq == 1`` (the table's ``q = x - 1``
+    is folded into BYTE's bias)."""
+    t = tables.build_byte_enc_tables(freqs, cum_freqs, prob_bits)
+    low = (np.asarray(cum_freqs[:256], np.uint32) if alias
+           else t.cmpl_freq)  # at most 2^16: fits below rcp_shift
+    out = np.stack([t.x_max, t.rcp_freq,
+                    np.asarray(freqs, np.uint32) if alias else t.bias,
+                    low | (t.rcp_shift << 24)], 1)
+    return out.astype(np.uint32).view(np.int32)
 
 
 def alias_dec_tables(freqs, cum_freqs, prob_bits: int):

@@ -159,12 +159,7 @@ def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                                  cum, n_symbols, prob_bits)
     if x0.device.type != "cuda":
         raise ValueError(f"no RANS64 decode kernel for {x0.device}")
-    if plan is None:
-        plan = decode_plan.plan("RANS64", N, prob_bits)
-    if (plan.variant, plan.n_lanes, plan.prob_bits) != ("RANS64", N,
-                                                        prob_bits):
-        raise ValueError(f"plan {plan} is not for RANS64 at {N} lanes, "
-                         f"prob_bits {prob_bits}")
+    plan = decode_plan.for_shape(plan, "RANS64", N, prob_bits)
     out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
     if nb:
         _kernels.call("rans64_decode", x0.device, x0.data_ptr(),

@@ -22,7 +22,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
-from . import host_prep
+from . import decode_plan, host_prep
 
 #: Symbols coded per kernel launch at most.  Bounds device memory: a group
 #: holds 4 B/symbol of dense encode cells, or 1 B/symbol of decode output.
@@ -146,16 +146,19 @@ def encode_blocks_ref(syms: torch.Tensor, freq: torch.Tensor,
 def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                   body_off: torch.Tensor, body_len: torch.Tensor,
                   c2s: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
-                  n_symbols: int, prob_bits: int) -> torch.Tensor:
+                  n_symbols: int, prob_bits: int,
+                  plan: decode_plan.DecodePlan | None = None) -> torch.Tensor:
     """Decode ``nb`` blocks of ``n_symbols`` each (K1,
-    ``csrc/word_decode.cu``).
+    ``csrc/word_decode.cu``, one thread-block cluster per block).
 
     x0: int32 [nb, N] initial states (u32 bits); words: int16 [W] stream
     buffer (u16 bits), block b's body being ``words[body_off[b]:
     body_off[b] + body_len[b]]`` (int64 / int32 [nb]); c2s: uint8
     [2^prob_bits]; freq, cum: int32 [256].  Returns uint8 [nb, n_symbols].
     A word read past a block's body reads its last word (a corrupt
-    container decodes to garbage, never out of bounds).
+    container decodes to garbage, never out of bounds).  ``plan`` defaults
+    to ``decode_plan.plan("WORD", N, prob_bits)``; another plan of the same
+    shape is for measuring the kernel at other cluster sizes.
     """
     if x0.dtype != torch.int32 or x0.dim() != 2 or not x0.is_contiguous():
         raise ValueError("x0 must be contiguous int32 [n_blocks, n_lanes]")
@@ -176,18 +179,26 @@ def decode_blocks(x0: torch.Tensor, words: torch.Tensor,
                                  cum, n_symbols, prob_bits)
     if x0.device.type != "cuda":
         raise ValueError(f"no WORD decode kernel for {x0.device}")
+    plan = decode_plan.for_shape(plan, "WORD", N, prob_bits)
     out = torch.empty((nb, n_symbols), dtype=torch.uint8, device=x0.device)
     if nb:
         _kernels.call("word_decode", x0.device, x0.data_ptr(),
                       words.data_ptr(), body_off.data_ptr(),
                       body_len.data_ptr(), c2s.data_ptr(), freq.data_ptr(),
                       cum.data_ptr(), out.data_ptr(), nb, N, n_symbols // N,
-                      prob_bits)
+                      prob_bits, *plan.c_args())
         decode_blocks.launches += 1
     return out
 
 
 decode_blocks.launches = 0
+
+
+def max_active_clusters(plan: decode_plan.DecodePlan, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K1 under ``plan`` on
+    ``device``."""
+    return _kernels.query("word_decode_occupancy", device, plan.n_lanes,
+                          plan.prob_bits, *plan.c_args())
 
 
 def decode_blocks_ref(x0: torch.Tensor, words: torch.Tensor,

@@ -272,24 +272,40 @@ def test_raw_blocks_on_card(dev):
                        torch.from_numpy(data).to(dev))
 
 
-# -- the cluster decoders K3 and K5 (one thread-block cluster per block, the
-# stream staged in shared memory): shapes that stress the plan and the ring
+# -- the cluster decoders K1, K3 and K5 (one thread-block cluster per block,
+# the stream staged in shared memory): shapes that stress the plan and the
+# ring
+
+def _module(variant):
+    return {rt.Variant.WORD: word, rt.Variant.RANS64: rans64}.get(variant,
+                                                                  byte)
+
 
 def _encode_blocks(dev, data, variant, N, pb, B):
     """Container blocks of ``data`` and the decode tables, on the card."""
     cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
                         block_symbols=B)
-    mod = rans64 if variant == rt.Variant.RANS64 else byte
+    mod = _module(variant)
     freqs, cum = stats.build_model(data, pb)
     syms = torch.from_numpy(data).to(dev)
-    return mod.encode(cfg, syms, freqs, cum), mod.dec_tables(cfg, freqs,
-                                                             cum, dev)
+    if variant == rt.Variant.WORD:
+        tables = tuple(torch.from_numpy(a).to(dev)
+                       for a in host_prep.dec_tables(freqs, cum, pb))
+    else:
+        tables = mod.dec_tables(cfg, freqs, cum, dev)
+    return mod.encode(cfg, syms, freqs, cum), tables
 
 
 def _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan=None):
     """Decode ``blocks`` as one launch group with the kernel and with its
     plain version; assert they agree; return the kernel's output."""
-    if variant == rt.Variant.RANS64:
+    if variant == rt.Variant.WORD:
+        stream = word.prep_decode(blocks, N, dev)
+        before = word.decode_blocks.launches
+        out = word.decode_blocks(*stream, *tables, B, pb, plan=plan)
+        assert word.decode_blocks.launches == before + 1
+        out_r = word.decode_blocks_ref(*stream, *tables, B, pb)
+    elif variant == rt.Variant.RANS64:
         stream = rans64.prep_decode(blocks, N, dev)
         before = rans64.decode_blocks.launches
         out = rans64.decode_blocks(*stream, *tables, B, pb, plan=plan)
@@ -308,8 +324,11 @@ def _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan=None):
 
 
 CLUSTER_VARIANTS = [(rt.Variant.BYTE, 14), (rt.Variant.ALIAS, 16),
-                    (rt.Variant.RANS64, 14), (rt.Variant.RANS64, 31)]
-CLUSTER_IDS = ["BYTE-pb14", "ALIAS-pb16", "RANS64-pb14", "RANS64-pb31"]
+                    (rt.Variant.RANS64, 14), (rt.Variant.RANS64, 31),
+                    (rt.Variant.WORD, 11), (rt.Variant.WORD, 15)]
+CLUSTER_IDS = ["BYTE-pb14", "ALIAS-pb16", "RANS64-pb14", "RANS64-pb31",
+               "WORD-pb11", "WORD-pb15"]
+HEAD_UNITS = {rt.Variant.WORD: 2, rt.Variant.RANS64: 2}  # else 4 bytes
 
 
 def _plan_changes():
@@ -331,7 +350,7 @@ def test_cluster_decoders_full_width_truncated_and_empty_body(dev, variant,
     N, B = 16384, 64 * 16384
     blocks, tables = _encode_blocks(dev, skewed(2 * B, seed=7), variant, N,
                                     pb, B)
-    head = (2 if variant == rt.Variant.RANS64 else 4) * N
+    head = HEAD_UNITS.get(variant, 4) * N
     whole = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B)
     assert torch.equal(whole.view(-1).cpu(),
                        torch.from_numpy(skewed(2 * B, seed=7)))
@@ -343,13 +362,16 @@ def test_cluster_decoders_full_width_truncated_and_empty_body(dev, variant,
 
 
 @pytest.mark.parametrize("variant,pb", [(rt.Variant.BYTE, 16),
-                                        (rt.Variant.RANS64, 31)],
-                         ids=["BYTE-pb16", "RANS64-pb31"])
+                                        (rt.Variant.RANS64, 31),
+                                        (rt.Variant.WORD, 15)],
+                         ids=["BYTE-pb16", "RANS64-pb31", "WORD-pb15"])
 def test_cluster_decoders_random_bytes_full_width(dev, variant, pb):
     """Near-incompressible input refills about a unit a lane a step: the
     ring's lead over the cursor is at its thinnest."""
     data = random_bytes(2 << 23, 11)
-    if variant == rt.Variant.RANS64:
+    if variant == rt.Variant.WORD:
+        _kernel_vs_plain(dev, data, 16384, pb, 1 << 23)
+    elif variant == rt.Variant.RANS64:
         _rans64_kernel_vs_plain(dev, data, 16384, pb, 1 << 23)
     else:
         _byte_kernel_vs_plain(dev, data, variant, 16384, pb, 1 << 23)
@@ -383,9 +405,67 @@ def test_cluster_decoders_every_cluster_size(dev, variant, pb):
     N, B = 16384, 32 * 16384
     data = skewed(2 * B, seed=9)
     blocks, tables = _encode_blocks(dev, data, variant, N, pb, B)
-    mod = rans64 if variant == rt.Variant.RANS64 else byte
+    mod = _module(variant)
     for c in dp.cluster_sizes(N):
         plan = dp.plan(variant.name, N, pb, cluster=c)
         assert mod.max_active_clusters(plan, dev) >= 1
         out = _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan)
         assert torch.equal(out.view(-1).cpu(), torch.from_numpy(data))
+
+
+# -- K4 (BYTE/ALIAS encode: symbols staged in shared memory, the reciprocal
+# in place of the divide, the ALIAS remap in shared memory)
+
+def _k4_vs_plain(dev, syms, freqs, cum, variant, N, pb):
+    alias = variant == rt.Variant.ALIAS
+    f, st = (torch.from_numpy(a).to(dev)
+             for a in host_prep.enc_tables(freqs, cum))
+    remap = (torch.from_numpy(host_prep.alias_remap(freqs, cum, pb)).to(dev)
+             if alias else None)
+    table = torch.from_numpy(host_prep.byte_enc_table(freqs, cum, pb,
+                                                      alias)).to(dev)
+    before = byte.encode_blocks.launches
+    cells, states = byte.encode_blocks(syms, f, st, remap, N, pb, table)
+    assert byte.encode_blocks.launches == before + 1
+    cells_r, states_r = byte.encode_blocks_ref(syms, f, st, remap, N, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
+
+
+@pytest.mark.parametrize("variant,pb", [(rt.Variant.BYTE, 16),
+                                        (rt.Variant.ALIAS, 16),
+                                        (rt.Variant.BYTE, 12),
+                                        (rt.Variant.ALIAS, 12)],
+                         ids=["BYTE-pb16", "ALIAS-pb16", "BYTE-pb12",
+                              "ALIAS-pb12"])
+@pytest.mark.parametrize("corpus", ["sparse", "one_symbol", "random"])
+def test_k4_edge_models(dev, corpus, variant, pb):
+    """freq == 1 symbols (sparse), the one-symbol model (freq = 2^pb) and,
+    at ALIAS pb 16, the random model whose slot adjusts wrap."""
+    data = CORPORA[corpus](3 << 16, seed=12)
+    freqs, cum = stats.build_model(data, pb)
+    if corpus == "sparse":
+        assert (np.asarray(freqs) == 1).any()
+    if corpus == "one_symbol":
+        assert np.asarray(freqs).max() == 1 << pb
+    syms = torch.from_numpy(data).to(dev).view(-1, 1 << 16)
+    _k4_vs_plain(dev, syms, freqs, cum, variant, 4096, pb)
+
+
+@pytest.mark.parametrize("variant,pb", [(rt.Variant.BYTE, 14),
+                                        (rt.Variant.ALIAS, 16)],
+                         ids=["BYTE-pb14", "ALIAS-pb16"])
+def test_k4_launch_groups_of_one_and_four_blocks_and_a_tail(dev, variant,
+                                                             pb):
+    """Full width (16384 lanes): one block, four blocks in one launch, a
+    tail block whose steps are not a whole tile, and symbols that do not
+    start on a 16-byte boundary."""
+    N, B = 16384, 1 << 20
+    data = skewed(5 * B + 12 * N, seed=13)
+    freqs, cum = stats.build_model(data, pb)
+    t = torch.from_numpy(data).to(dev)
+    _k4_vs_plain(dev, t[:B].view(1, B), freqs, cum, variant, N, pb)
+    _k4_vs_plain(dev, t[:4 * B].view(4, B), freqs, cum, variant, N, pb)
+    _k4_vs_plain(dev, t[4 * B:].view(1, -1), freqs, cum, variant, N, pb)
+    _k4_vs_plain(dev, t[1:1 + 8 * N].view(1, -1), freqs, cum, variant, N,
+                 pb)

@@ -1,5 +1,6 @@
-"""The launch plan of the cluster decoders K3 (BYTE, ALIAS) and K5 (RANS64),
-``ryg_rans_tpu_torch.ops.decode_plan``, at every shape the kernels take.
+"""The launch plan of the cluster decoders K1 (WORD), K3 (BYTE, ALIAS) and K5
+(RANS64), ``ryg_rans_tpu_torch.ops.decode_plan``, at every shape the kernels
+take.
 The plan is plain Python, so it is checked here without a card; the
 kernels check it again on the card (``tests/test_torch_cuda.py``)."""
 
@@ -8,7 +9,7 @@ import pytest
 from ryg_rans_tpu_torch.ops import decode_plan as dp
 
 SHAPES = [(v, n, pb) for v in dp.VARIANTS for n in dp.LANE_COUNTS
-          for pb in range(9, (31 if v == "RANS64" else 16) + 1)]
+          for pb in range(9, dp.MAX_PROB_BITS[v] + 1)]
 
 
 def check_plan(p: dp.DecodePlan) -> None:
@@ -24,7 +25,8 @@ def check_plan(p: dp.DecodePlan) -> None:
     assert p.threads % 32 == 0 and 32 <= p.threads <= dp.MAX_THREADS
     assert p.lanes_per_thread in (1, 2, 4, 8, 16)
     # the ring holds at least two windows of one step's maximum: 2 bytes a
-    # lane (BYTE, ALIAS) or one 4-byte word a lane (RANS64)
+    # lane (BYTE, ALIAS), one 2-byte word a lane (WORD) or one 4-byte word a
+    # lane (RANS64)
     unit = 4 if p.variant == "RANS64" else 2
     assert p.window_bytes == unit * p.n_lanes
     assert p.ring_bytes >= 2 * p.window_bytes
@@ -59,7 +61,8 @@ def test_every_cluster_size(variant, n_lanes):
     assert sizes == sorted(sizes) and dp.plan(variant, n_lanes,
                                               12).cluster in sizes
     for c in sizes:
-        for pb in (9, 12, 16) + ((24, 31) if variant == "RANS64" else ()):
+        top = 15 if variant == "WORD" else 16
+        for pb in (9, 12, top) + ((24, 31) if variant == "RANS64" else ()):
             p = dp.plan(variant, n_lanes, pb, cluster=c)
             assert p.cluster == c
             check_plan(p)
@@ -72,10 +75,12 @@ def test_full_width_spreads_over_a_cluster():
         assert 16 in dp.cluster_sizes(16384)
     assert dp.plan("BYTE", 16384, 16).ring_bytes == 73_728
     assert dp.plan("RANS64", 16384, 16).smem_bytes == 215_056
+    word = dp.plan("WORD", 16384, 15)
+    assert (word.ring_bytes, word.smem_bytes) == (73_728, 107_520)
 
 
 @pytest.mark.parametrize("args", [
-    ("WORD", 1024, 12), ("BYTE", 64, 12), ("BYTE", 3000, 12),
+    ("WORD", 1024, 16), ("BYTE", 64, 12), ("BYTE", 3000, 12),
     ("BYTE", 32768, 12), ("BYTE", 1024, 8), ("ALIAS", 1024, 17),
     ("RANS64", 1024, 32)])
 def test_plan_rejects_shapes_the_kernels_do_not_take(args):
@@ -88,3 +93,17 @@ def test_plan_rejects_shapes_the_kernels_do_not_take(args):
 def test_plan_rejects_cluster_sizes_outside_the_shape(n_lanes, cluster):
     with pytest.raises(ValueError):
         dp.plan("BYTE", n_lanes, 12, cluster=cluster)
+
+
+@pytest.mark.parametrize("variant", dp.VARIANTS)
+def test_for_shape_takes_the_default_or_a_plan_of_the_shape(variant):
+    assert dp.for_shape(None, variant, 16384, 12) == dp.plan(variant, 16384,
+                                                             12)
+    other_c = dp.plan(variant, 16384, 12, cluster=16)
+    assert dp.for_shape(other_c, variant, 16384, 12) is other_c
+    for lanes, pb in ((8192, 12), (16384, 13)):
+        with pytest.raises(ValueError, match="is not for"):
+            dp.for_shape(other_c, variant, lanes, pb)
+    wrong = "BYTE" if variant != "BYTE" else "ALIAS"
+    with pytest.raises(ValueError, match="is not for"):
+        dp.for_shape(other_c, wrong, 16384, 12)
