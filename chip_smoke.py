@@ -10,8 +10,10 @@ Phases, each fatal on failure:
    equality of cells, states and symbols, launch group by launch group.
    WORD (K1/K2): at the main path's shapes (16384 lanes, prob_bits 11,
    eight 2^23-symbol blocks and a tail block), at prob_bits 12 with 1024
-   lanes, on a prob_bits-15 one-symbol input, and on uniform random bytes
-   at full width (prob_bits 15, two 2^23-symbol blocks and a tail).  BYTE/ALIAS (K3/K4) and
+   lanes, on a prob_bits-15 one-symbol input, and at full width
+   (prob_bits 15, two 2^23-symbol blocks and a tail) on uniform random
+   bytes and on a model whose dominant symbol has freq 2^15 - 3 (encoder
+   states past 2^31).  BYTE/ALIAS (K3/K4) and
    RANS64 (K5/K6): at their full-width auto shapes (16384 lanes, 2^23-symbol
    blocks, BYTE prob_bits 14, ALIAS 16, RANS64 14 and 31; four full blocks
    and a tail), at BYTE prob_bits 16 (the 64 KB cum2sym), at RANS64
@@ -109,9 +111,23 @@ def random_full_width() -> np.ndarray:
                                              dtype=np.uint8)
 
 
+def dominant_full_width() -> np.ndarray:
+    """Two 2^23-symbol blocks and a tail of one symbol with three rare ones
+    512 times each: at prob_bits 15 the model gives the rare ones freq 1
+    and the dominant one 2^15 - 3, so a WORD lane that codes a rare symbol
+    runs its state past 2^31 while it codes the dominant one, where
+    rans_byte.h's 31-bit reciprocal is not exact."""
+    n = (2 << 23) + 4567
+    rng = np.random.default_rng(6)
+    out = np.full(n, 0x41, np.uint8)
+    out[rng.integers(0, n, 3 * 512)] = np.repeat(
+        np.array([0x20, 0x61, 0xF0], np.uint8), 512)
+    return out
+
+
 def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
     """Phase 2: each kernel against its plain version, launch group by
-    launch group as the main path cuts the input, at four shapes."""
+    launch group as the main path cuts the input, at five shapes."""
     import torch
 
     dev = torch.device("cuda")
@@ -126,6 +142,9 @@ def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
         ("pb15 one symbol",
          RansConfig(prob_bits=15, n_lanes=4096, block_symbols=1 << 16),
          np.full(3 << 16, 0x41, np.uint8)),
+        ("pb15 dominant symbol full width",
+         RansConfig(prob_bits=15, n_lanes=16384, block_symbols=1 << 23),
+         dominant_full_width()),
     ]
     worst = {"word_encode": 0, "word_decode": 0}
     for label, cfg, data in cases:
@@ -133,20 +152,24 @@ def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
         freqs, cum = stats.build_model(data, pb)
         f, st = (torch.from_numpy(a).to(dev)
                  for a in host_prep.enc_tables(freqs, cum))
+        table = torch.from_numpy(host_prep.word_enc_table(freqs, cum,
+                                                          pb)).to(dev)
         c2s, fd, cd = (torch.from_numpy(a).to(dev)
                        for a in host_prep.dec_tables(freqs, cum, pb))
         padded = rt_word.pad_block(torch.from_numpy(data).to(dev), N, freqs)
         sizes = rt_word.block_sizes(cfg.block_symbols, padded.numel())
-        shapes, e_enc, e_dec, pos = [], 0, 0, 0
+        shapes, e_enc, e_dec, pos, x_top = [], 0, 0, 0, 0
         for _, nb, size in rt_word.groups(sizes):
             syms = padded[pos:pos + nb * size].view(nb, size)
             pos += nb * size
             shapes.append(f"{nb}x{size}")
-            cells, states = rt_word.encode_blocks(syms, f, st, N, pb)
+            cells, states = rt_word.encode_blocks(syms, f, st, N, pb, table)
             cells_r, states_r = rt_word.encode_blocks_ref(syms, f, st, N, pb)
             torch.cuda.synchronize()
             e_enc = max(e_enc, max_abs_err(cells, cells_r),
                         max_abs_err(states, states_r))
+            x_top = max(x_top, int((states.to(torch.int64)
+                                    & 0xFFFFFFFF).max()))
             del cells, cells_r
 
             blocks = rt_word.encode(cfg, syms.view(-1), freqs, cum)
@@ -157,12 +180,17 @@ def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
             e_dec = max(e_dec, max_abs_err(out, out_r),
                         max_abs_err(out, syms))
         print(f"kernel check {label}: n_lanes={N} prob_bits={pb} "
-              f"launch groups (blocks x symbols) {shapes} encode "
-              f"max_abs_err={e_enc} decode max_abs_err={e_dec} "
-              f"(tolerance 0: exact)", flush=True)
+              f"max freq {int(np.max(freqs))} launch groups (blocks x "
+              f"symbols) {shapes} encode max_abs_err={e_enc} decode "
+              f"max_abs_err={e_dec} (tolerance 0: exact); largest final "
+              f"encoder state {x_top}", flush=True)
         if e_enc or e_dec:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"({label})")
+        if "dominant" in label and (int(np.max(freqs)) != (1 << 15) - 3
+                                    or x_top < 1 << 31):
+            raise AssertionError("the dominant-symbol case does not reach "
+                                 "states past 2^31 at freq 2^15 - 3")
         worst["word_encode"] = max(worst["word_encode"], e_enc)
         worst["word_decode"] = max(worst["word_decode"], e_dec)
     return worst
@@ -179,9 +207,10 @@ class Codec:
         self.N, self.pb = cfg.n_lanes, cfg.prob_bits
         f, st = (torch.from_numpy(a).to(dev)
                  for a in host_prep.enc_tables(freqs, cum))
-        self.enc_kw = {}
         if self.variant == "RANS64":
             self.enc_tabs = (f, st)
+            self.enc_kw = {"table": torch.from_numpy(
+                host_prep.rans64_enc_table(freqs, cum, self.pb)).to(dev)}
             self.head_units = 2 * self.N  # u32 words
         else:
             remap = (torch.from_numpy(host_prep.alias_remap(
@@ -367,19 +396,20 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
     M = 1 << pb
     # bytes: symbols in, dense cells and states out, tables in (decode:
     # the stream in, symbols out, tables in).  ops: per symbol, encode
-    # compares, shifts, divides, takes the modulo and adds (7), decode
+    # compares, selects, multiplies high, shifts, multiplies and adds twice
+    # (7), decode
     # masks, shifts, multiplies, adds, subtracts and compares (7; ALIAS
     # adds a shift, a compare and an add for the bucket half, RANS64 above
     # prob_bits 16 an 8-step search of a compare and an add each); 2 per
     # renorm unit (mask or shift, shift or or)
     if c.variant == "RANS64":
         wb, cell_b, state_b = 4, 8, 8
-        enc_tab = 2 * 256 * 4
+        enc_tab = 256 * 32
         dec_tab = (256 + 257) * 4 + (M if pb <= 16 else 0)
         dec_ops = 7 + (16 if pb > 16 else 0)
     else:
         wb, cell_b, state_b = 1, 4, 4
-        enc_tab = 2 * 256 * 4 + (2 * M if c.variant == "ALIAS" else 0)
+        enc_tab = 256 * 16 + (2 * M if c.variant == "ALIAS" else 0)
         dec_tab = ((256 + 3 * 512) * 4 if c.variant == "ALIAS"
                    else M + 2 * 256 * 4)
         dec_ops = 10 if c.variant == "ALIAS" else 7
@@ -649,18 +679,21 @@ def main(argv=None) -> int:
     syms = padded[:nb * B].view(nb, B)
     f, st = (torch.from_numpy(a).cuda()
              for a in host_prep.enc_tables(freqs, cum))
-    enc_ms = cuda_ms(lambda: rt_word.encode_blocks(syms, f, st, N, pb), 20)
+    table = torch.from_numpy(host_prep.word_enc_table(freqs, cum, pb)).cuda()
+    enc_ms = cuda_ms(lambda: rt_word.encode_blocks(syms, f, st, N, pb, table),
+                     20)
     enc_plain_ms = cuda_ms(
         lambda: rt_word.encode_blocks_ref(syms, f, st, N, pb), 1)
-    cells, _ = rt_word.encode_blocks(syms, f, st, N, pb)
+    cells, _ = rt_word.encode_blocks(syms, f, st, N, pb, table)
     emitted = int((cells >= 0x10000).sum())
     del cells
     S = nb * B
-    # bytes: symbols in, 4-byte cells and the states out, tables in; ops:
-    # compare, divide, modulo, shift and two adds per symbol, and a mask
-    # and a shift per emitted word
-    enc_bound = bound_ms(S * (1 + 4) + nb * N * 4 + 2 * 256 * 4,
-                         6 * S + 2 * emitted)
+    # bytes: symbols in, 4-byte cells and the states out, the table in;
+    # ops: 7 per symbol, as time_new_kernels counts K4 and K6 (compare, two
+    # selects, multiply high, multiply, two adds), and a mask and a shift
+    # per emitted word
+    enc_bound = bound_ms(S * (1 + 4) + nb * N * 4 + 256 * 16,
+                         7 * S + 2 * emitted)
 
     c = cont.unpack(blob)
     blocks = [c.payloads[i][0] for i in range(nb)]

@@ -38,13 +38,13 @@ _I = ctypes.c_int
 #: launches take PyTorch's stream last; the ``*_occupancy`` queries take a
 #: pointer to the int they fill.
 SIGNATURES = {
-    "word_encode": ("word_encode", [_P] * 5 + [_I] * 4 + [_P]),
+    "word_encode": ("word_encode", [_P] * 4 + [_I] * 4 + [_P]),
     "word_decode": ("word_decode", [_P] * 8 + [_I] * 8 + [_P]),
     "word_decode_occupancy": ("word_decode", [_I] * 6 + [_P]),
     "byte_encode": ("byte_encode", [_P] * 5 + [_I] * 4 + [_P]),
     "byte_decode": ("byte_decode", [_P] * 9 + [_I] * 9 + [_P]),
     "byte_decode_occupancy": ("byte_decode", [_I] * 7 + [_P]),
-    "rans64_encode": ("rans64_encode", [_P] * 5 + [_I] * 4 + [_P]),
+    "rans64_encode": ("rans64_encode", [_P] * 4 + [_I] * 4 + [_P]),
     "rans64_decode": ("rans64_decode", [_P] * 8 + [_I] * 8 + [_P]),
     "rans64_decode_occupancy": ("rans64_decode", [_I] * 6 + [_P]),
 }

@@ -26,7 +26,7 @@ from .. import _kernels
 from ..config import RansConfig, Variant
 from . import decode_plan, host_prep
 from .word import (check_tables, i32_as_u32, u32_as_i32, assemble_blocks,
-                   block_sizes, check_shape, groups, stack_blocks)
+                   block_sizes, check_shape, groups, stack_blocks, staged)
 
 #: Symbols coded per kernel launch at most: 4 B/symbol of dense encode
 #: cells, so a group holds at most 1 GiB of them.
@@ -85,11 +85,7 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
             freq.cpu().numpy().view(np.uint32),
             start.cpu().numpy().view(np.uint32), prob_bits,
             remap is not None)).to(syms.device)
-    if table.dtype != torch.int32 or table.shape != (256, 4):
-        raise ValueError("table must be int32 [256, 4]")
-    check_tables(syms, table)
-    if syms.data_ptr() % 16:
-        syms = syms.clone()  # the kernel stages symbols in 16-byte pieces
+    syms = staged(syms, table, (256, 4))
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int32, device=syms.device)
     states = torch.empty((nb, n_lanes), dtype=torch.int32,

@@ -10,9 +10,10 @@ segment tables and bisect keys served the TPU's gathers and its lack of
   symbol's ``freq`` and ``cum`` (separate arrays: at BYTE prob_bits 16 a
   one-symbol model has freq 2^16, which no 16-bit field holds).
 * Encode (every variant): ``freq`` and ``start`` (= cum) per symbol; the
-  plain versions and the WORD and RANS64 kernels read these.  The BYTE/ALIAS
-  kernel reads one 16-byte row per symbol instead, with the reciprocal of
-  ``models/tables.py`` in place of the divide (:func:`byte_enc_table`).
+  plain versions read these.  The kernels read one row per symbol instead,
+  with a reciprocal of ``models/tables.py`` in place of the divide:
+  16 bytes for WORD (:func:`word_enc_table`) and BYTE/ALIAS
+  (:func:`byte_enc_table`), 32 for RANS64 (:func:`rans64_enc_table`).
 * ALIAS decode: the absolute bucket divider [256], then per half
   (bucket2 = 2*bucket + (slot < divider)) the symbol, its freq and the
   signed slot adjust [512].  ALIAS encode adds the flat remap [2^prob_bits].
@@ -62,6 +63,37 @@ def byte_enc_table(freqs, cum_freqs, prob_bits: int,
     out = np.stack([t.x_max, t.rcp_freq,
                     np.asarray(freqs, np.uint32) if alias else t.bias,
                     low | (t.rcp_shift << 24)], 1)
+    return out.astype(np.uint32).view(np.int32)
+
+
+def word_enc_table(freqs, cum_freqs, prob_bits: int) -> np.ndarray:
+    """WORD encode kernel -> int32 [256, 4], u32 bits: per symbol (x_max -
+    1, rcp_freq lo, rcp_freq hi, bias | cmpl_freq << 16), from
+    ``tables.build_word_enc_tables``.  A step is then ``q = mulhi64(x,
+    rcp_freq); x += bias + q * cmpl_freq``."""
+    t = tables.build_word_enc_tables(freqs, cum_freqs, prob_bits)
+    out = np.stack([t.x_max_m1, t.rcp_freq & np.uint64(0xFFFFFFFF),
+                    t.rcp_freq >> np.uint64(32),
+                    t.bias | (t.cmpl_freq << 16)], 1)  # both below 2^16
+    return out.astype(np.uint32).view(np.int32)
+
+
+def rans64_enc_table(freqs, cum_freqs, prob_bits: int) -> np.ndarray:
+    """RANS64 encode kernel -> int32 [256, 8], u32 bits: per symbol
+    (rcp_freq lo, rcp_freq hi, bias, cmpl_freq, rcp_shift, thr, 0, 0), from
+    ``tables.build_rans64_enc_tables``, with ``thr = freq << (31 -
+    prob_bits)`` the renorm threshold of the state's high word.  The six
+    fields are those of the reference package's recip tables
+    (rans64_tpu.pack_enc_tables_recip).  A step is then ``q = mulhi64(x,
+    rcp_freq) >> rcp_shift; x += bias + q * cmpl_freq``.  cmpl_freq reaches
+    2^31 - 1 at prob_bits 31, so no field has room for the shift: the row
+    is padded to 32 bytes instead."""
+    t = tables.build_rans64_enc_tables(freqs, cum_freqs, prob_bits)
+    thr = t.freq.astype(np.uint64) << np.uint64(31 - prob_bits)
+    zero = np.zeros(256, np.uint64)
+    out = np.stack([t.rcp_freq & np.uint64(0xFFFFFFFF),
+                    t.rcp_freq >> np.uint64(32), t.bias, t.cmpl_freq,
+                    t.rcp_shift, thr, zero, zero], 1)
     return out.astype(np.uint32).view(np.int32)
 
 

@@ -73,19 +73,34 @@ def check_tables(ref: torch.Tensor, *tables: torch.Tensor) -> None:
                              "device")
 
 
+def staged(syms: torch.Tensor, table: torch.Tensor, shape) -> torch.Tensor:
+    """Check an encode kernel's ``table`` (int32 of ``shape`` on the data's
+    device) and return ``syms``, copied first when it does not start on a
+    16-byte boundary: the encoders stage symbols in 16-byte pieces
+    (``csrc/enc_tiles.cuh``)."""
+    if table.dtype != torch.int32 or tuple(table.shape) != shape:
+        raise ValueError(f"table must be int32 {list(shape)}")
+    check_tables(syms, table)
+    return syms.clone() if syms.data_ptr() % 16 else syms
+
+
 # ---------------------------------------------------------------------------
 # K2: dense encode
 # ---------------------------------------------------------------------------
 
 
 def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
-                  start: torch.Tensor, n_lanes: int, prob_bits: int):
+                  start: torch.Tensor, n_lanes: int, prob_bits: int,
+                  table: torch.Tensor | None = None):
     """Dense encode of ``nb`` blocks (K2, ``csrc/word_encode.cu``).
 
     syms: uint8 [nb, S] with S a multiple of n_lanes; freq, start: int32
     [256].  Returns (cells int32 [nb, S], states int32 [nb, n_lanes]): cell
     ``(word | 1<<16)`` where a lane renormalised at that step, else 0, and
-    the final states as u32 bits.
+    the final states as u32 bits.  The kernel reads ``table``,
+    ``host_prep.word_enc_table`` of the same model (int32 [256, 4] on the
+    data's device), in place of freq and start; without it, the wrapper
+    builds it from them (a copy to the host).
     """
     if (syms.dtype != torch.uint8 or syms.dim() != 2
             or syms.shape[1] % n_lanes or not syms.is_contiguous()):
@@ -99,15 +114,19 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
         return encode_blocks_ref(syms, freq, start, n_lanes, prob_bits)
     if syms.device.type != "cuda":
         raise ValueError(f"no WORD encode kernel for {syms.device}")
+    if table is None:
+        table = torch.from_numpy(host_prep.word_enc_table(
+            freq.cpu().numpy(), start.cpu().numpy(), prob_bits)).to(
+                syms.device)
+    syms = staged(syms, table, (256, 4))
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int32, device=syms.device)
     states = torch.empty((nb, n_lanes), dtype=torch.int32,
                          device=syms.device)
     if nb:
         _kernels.call("word_encode", syms.device, syms.data_ptr(),
-                      freq.data_ptr(), start.data_ptr(), cells.data_ptr(),
-                      states.data_ptr(), nb, n_lanes, S // n_lanes,
-                      prob_bits)
+                      table.data_ptr(), cells.data_ptr(), states.data_ptr(),
+                      nb, n_lanes, S // n_lanes, prob_bits)
         encode_blocks.launches += 1
     return cells, states
 
@@ -351,13 +370,16 @@ def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
     dev = padded.device
     freq, start = (torch.from_numpy(a).to(dev)
                    for a in host_prep.enc_tables(freqs, cum_freqs))
+    table = torch.from_numpy(host_prep.word_enc_table(
+        freqs, cum_freqs, cfg.prob_bits)).to(dev)
     out: list[np.ndarray] = []
     pos = 0
     for _, nb, size in groups(block_sizes(cfg.block_symbols,
                                           padded.numel())):
         syms = padded[pos:pos + nb * size].view(nb, size)
         pos += nb * size
-        cells, states = encode_blocks(syms, freq, start, N, cfg.prob_bits)
+        cells, states = encode_blocks(syms, freq, start, N, cfg.prob_bits,
+                                      table)
         heads, body, counts = compact_emissions(cells, states)
         del cells
         out += assemble_blocks(heads.cpu().numpy().view(np.uint16),

@@ -35,5 +35,18 @@ def sparse(n: int, seed: int = 0) -> np.ndarray:
     return out
 
 
+def dominant(n: int, seed: int = 0) -> np.ndarray:
+    """One symbol and three rare ones, n >> 15 times each (at least once):
+    at prob_bits 15 the model gives the rare ones freq 1 and the dominant
+    one 2^15 - 3, so a WORD lane that codes a rare symbol runs its state
+    past 2^31 while it codes the dominant one."""
+    rng = np.random.default_rng(seed)
+    out = np.full(n, 0x41, np.uint8)
+    k = max(1, n >> 15)
+    out[rng.integers(0, n, 3 * k)] = np.repeat(
+        np.array([0x20, 0x61, 0xF0], np.uint8), k)
+    return out
+
+
 CORPORA = {"skewed": skewed, "random": random_bytes,
            "one_symbol": lambda n, seed=0: one_symbol(n), "sparse": sparse}

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_corpora import CORPORA, random_bytes, skewed
+from _torch_corpora import CORPORA, dominant, random_bytes, skewed
 import ryg_rans_tpu_torch as rt
 from ryg_rans_tpu_torch.models import stats
 from ryg_rans_tpu_torch.ops import byte, host_prep, rans64, word
@@ -469,3 +469,101 @@ def test_k4_launch_groups_of_one_and_four_blocks_and_a_tail(dev, variant,
     _k4_vs_plain(dev, t[4 * B:].view(1, -1), freqs, cum, variant, N, pb)
     _k4_vs_plain(dev, t[1:1 + 8 * N].view(1, -1), freqs, cum, variant, N,
                  pb)
+
+
+# -- K2 and K6 (WORD and RANS64 encode on csrc/enc_tiles.cuh: symbols staged
+# in shared memory, division-free steps from their host_prep tables)
+
+K2_K6 = [(rt.Variant.WORD, 9), (rt.Variant.WORD, 12), (rt.Variant.WORD, 15),
+         (rt.Variant.RANS64, 9), (rt.Variant.RANS64, 14),
+         (rt.Variant.RANS64, 16), (rt.Variant.RANS64, 24),
+         (rt.Variant.RANS64, 31)]
+K2_K6_IDS = [f"{v.name}-pb{pb}" for v, pb in K2_K6]
+
+
+def _enc_vs_plain(dev, syms, freqs, cum, variant, N, pb, table=True):
+    """K2 or K6 on ``syms`` against its plain version; ``table=False``
+    leaves the table to the wrapper.  Returns the kernel's states."""
+    mod = word if variant == rt.Variant.WORD else rans64
+    make = (host_prep.word_enc_table if variant == rt.Variant.WORD
+            else host_prep.rans64_enc_table)
+    f, st = (torch.from_numpy(a).to(dev)
+             for a in host_prep.enc_tables(freqs, cum))
+    kw = ({"table": torch.from_numpy(make(freqs, cum, pb)).to(dev)}
+          if table else {})
+    before = mod.encode_blocks.launches
+    cells, states = mod.encode_blocks(syms, f, st, N, pb, **kw)
+    assert mod.encode_blocks.launches == before + 1
+    cells_r, states_r = mod.encode_blocks_ref(syms, f, st, N, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
+    return states
+
+
+@pytest.mark.parametrize("N", LANES)
+@pytest.mark.parametrize("variant,pb", K2_K6, ids=K2_K6_IDS)
+def test_k2_k6_every_lane_count(dev, variant, pb, N):
+    """Two blocks of 40 steps (a whole tile and 8 steps) in one launch with
+    the table, and one block with the table left to the wrapper."""
+    B = 40 * N
+    data = skewed(2 * B, seed=N + pb)
+    freqs, cum = stats.build_model(data, pb)
+    syms = torch.from_numpy(data).to(dev).view(2, B)
+    _enc_vs_plain(dev, syms, freqs, cum, variant, N, pb)
+    _enc_vs_plain(dev, syms[1:], freqs, cum, variant, N, pb, table=False)
+
+
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.WORD, 12), (rt.Variant.WORD, 15), (rt.Variant.RANS64, 16),
+    (rt.Variant.RANS64, 31)],
+    ids=["WORD-pb12", "WORD-pb15", "RANS64-pb16", "RANS64-pb31"])
+@pytest.mark.parametrize("corpus", ["sparse", "one_symbol", "random"])
+def test_k2_k6_edge_models(dev, corpus, variant, pb):
+    """freq == 1 symbols (sparse) and the one-symbol model (freq = 2^pb:
+    WORD's x_max is 2^32 there, RANS64's threshold 2^31 at pb 31)."""
+    data = CORPORA[corpus](3 << 16, seed=14)
+    freqs, cum = stats.build_model(data, pb)
+    if corpus == "sparse" and pb <= 16:  # above, every freq scales past 1
+        assert (np.asarray(freqs) == 1).any()
+    if corpus == "one_symbol":
+        assert np.asarray(freqs).max() == 1 << pb
+    syms = torch.from_numpy(data).to(dev).view(-1, 1 << 16)
+    _enc_vs_plain(dev, syms, freqs, cum, variant, 4096, pb)
+
+
+def test_k2_dominant_symbol_full_width(dev):
+    """WORD prob_bits 15 at full width (16384 lanes, two 2^23-symbol blocks
+    and a tail) on a model with one symbol of freq 2^15 - 3: the states run
+    past 2^31, where rans_byte.h's 31-bit reciprocal is not exact."""
+    N, B, pb = 16384, 1 << 23, 15
+    data = dominant((2 << 23) + 12 * N, seed=15)
+    freqs, cum = stats.build_model(data, pb)
+    assert np.asarray(freqs).max() == (1 << 15) - 3
+    t = torch.from_numpy(data).to(dev)
+    states = _enc_vs_plain(dev, t[:2 * B].view(2, B), freqs, cum,
+                           rt.Variant.WORD, N, pb)
+    assert int((states.to(torch.int64) & 0xFFFFFFFF).max()) >= 1 << 31
+    _enc_vs_plain(dev, t[2 * B:].view(1, -1), freqs, cum, rt.Variant.WORD,
+                  N, pb)
+
+
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.WORD, 11), (rt.Variant.WORD, 15), (rt.Variant.RANS64, 14),
+    (rt.Variant.RANS64, 31)],
+    ids=["WORD-pb11", "WORD-pb15", "RANS64-pb14", "RANS64-pb31"])
+def test_k2_k6_launch_groups_of_one_and_four_blocks_and_a_tail(dev, variant,
+                                                                pb):
+    """Full width (16384 lanes): one block, four blocks in one launch, a
+    tail block whose steps are not a whole tile, symbols that do not start
+    on a 16-byte boundary, and the table left to the wrapper."""
+    N, B = 16384, 1 << 20
+    data = skewed(5 * B + 12 * N, seed=16)
+    freqs, cum = stats.build_model(data, pb)
+    t = torch.from_numpy(data).to(dev)
+    _enc_vs_plain(dev, t[:B].view(1, B), freqs, cum, variant, N, pb)
+    _enc_vs_plain(dev, t[:4 * B].view(4, B), freqs, cum, variant, N, pb)
+    _enc_vs_plain(dev, t[4 * B:].view(1, -1), freqs, cum, variant, N, pb)
+    _enc_vs_plain(dev, t[1:1 + 8 * N].view(1, -1), freqs, cum, variant, N,
+                  pb)
+    _enc_vs_plain(dev, t[:4 * B].view(4, B), freqs, cum, variant, N, pb,
+                  table=False)

@@ -58,7 +58,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "decode_probe.py"]))
 def test_source_imports_no_jax(path):
     for mod in _imported_roots(ROOT / path):
         top = mod.split(".")[0]
