@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
 
-1. build all six kernels (``csrc/*.cu``) with nvcc for sm_90a, in parallel;
+1. build all six kernels (``csrc/*.cu``) with nvcc for sm_90a, in parallel,
+   and the C++ host core (``csrc/rans_core.cpp``) with g++;
 2. hold each kernel against its plain PyTorch version on the card, by exact
    equality of cells, states and symbols, launch group by launch group.
    WORD (K1/K2): at the main path's shapes (16384 lanes, prob_bits 11,
@@ -29,15 +30,25 @@ Phases, each fatal on failure:
    writes, then ``decompress_to_device`` and ``compress_from_device`` (and,
    for the new variants, ``decompress_block``) on the same container and
    data; all launch counts are zeroed just before each path and read just
-   after it;
+   after it.  Then the host backends beside the card: on each path's input
+   ``compress(..., backend="native")`` equals the card's container and each
+   side decodes the other's; ``RansConfig.reference(v)`` at 1 and 2 lanes
+   for every variant (1 MiB) and 16384 lanes of 2048 a substream (8 MiB)
+   round-trip through ``native``, ``backend="numpy"`` writes the same
+   container (at 16 KB and 1 MiB), and the card's ``decompress`` of them
+   raises NotImplementedError naming the host backends;
 4. time each kernel (CUDA events) and its plain version on the full-block
    launch group of its path, and the warm wall time of each entry point of
-   each path; for the cluster decoders K1 (WORD), K3 (BYTE, ALIAS) and K5
+   each path, and of native ``compress`` / ``decompress`` on each path's
+   input (median of 5, beside the host's CPU model and core count), and
+   the native core alone on one block on one thread; for
+   the cluster decoders K1 (WORD), K3 (BYTE, ALIAS) and K5
    (RANS64 prob_bits 14 and 31), print the launch plan's cluster size C,
    the CTAs (SMs at most) a launch group uses,
    ``cudaOccupancyMaxActiveClusters``, and the group's and one block's time
    at every C the plan allows; for the encoders, the time a step; then
-   trace one WORD ``compress`` and ``decompress`` with torch.profiler.
+   trace one WORD ``compress`` and ``decompress``, on the card and
+   through the native backend, with torch.profiler.
 
 It prints the card's name and power limit, the measurements, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -49,6 +60,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -123,6 +136,76 @@ def dominant_full_width() -> np.ndarray:
     out[rng.integers(0, n, 3 * 512)] = np.repeat(
         np.array([0x20, 0x61, 0xF0], np.uint8), 512)
     return out
+
+
+def host_cpu() -> str:
+    """The host's CPU: the first ``model name`` of /proc/cpuinfo (or that
+    it shows none), the machine type, and whether its flags have AVX2 (the
+    native core's vector engines)."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        lines = []
+    model = next((ln.split(":", 1)[1].strip() for ln in lines
+                  if ln.startswith("model name")), "model not shown")
+    flags = next((ln.split() for ln in lines if ln.startswith("flags")), [])
+    return (f"{model} ({platform.machine()}, AVX2 "
+            f"{'yes' if 'avx2' in flags else 'no'})")
+
+
+def check_host_backends(rt, RansConfig, Variant, paths, data_main) -> None:
+    """The host backends beside the card.  ``paths`` maps each path's name
+    to (cfg, input, the card's container): the native container equals the
+    card's, and each side decodes the other's.  Then the layouts the card
+    refuses round-trip through native, numpy writes the same container,
+    and the card's decompress of them raises naming the host backends."""
+    for name, (cfg, data, card_blob) in paths.items():
+        blob = rt.compress(data, cfg, backend="native")
+        if blob != card_blob:
+            raise AssertionError(f"{name}: the native container differs "
+                                 "from the card's")
+        if rt.decompress(card_blob, backend="native") != data.tobytes():
+            raise AssertionError(f"{name}: native does not decode the "
+                                 "card's container")
+        if rt.decompress(blob) != data.tobytes():
+            raise AssertionError(f"{name}: the card does not decode the "
+                                 "native container")
+        print(f"host backends, {name} path: native container equal to the "
+              f"card's ({len(blob)} bytes), each decodes the other's",
+              flush=True)
+    refused = [RansConfig.reference(v, n) for v in Variant for n in (1, 2)]
+    refused.append(RansConfig(prob_bits=11, n_lanes=16384,
+                              lanes_per_stream=2048, block_symbols=1 << 23))
+    for cfg in refused:
+        wide = cfg.n_lanes > 2
+        data = data_main[:(8 << 20) + 12_345 if wide else 1 << 20]
+        t0 = time.perf_counter()
+        blob = rt.compress(data, cfg, backend="native")
+        t_enc = time.perf_counter() - t0
+        if rt.decompress(blob, backend="native") != data.tobytes():
+            raise AssertionError(f"native round trip failed: {cfg}")
+        # the NumPy oracle steps in Python: 16 KB at 1-2 lanes
+        small = data[:1 << 20 if wide else 16 << 10]
+        ref = rt.compress(small, cfg, backend="numpy")
+        if ref != rt.compress(small, cfg, backend="native"):
+            raise AssertionError(f"numpy and native containers differ: {cfg}")
+        if rt.decompress(ref, backend="numpy") != small.tobytes():
+            raise AssertionError(f"numpy round trip failed: {cfg}")
+        try:
+            rt.decompress(blob)
+        except NotImplementedError as e:
+            if 'backend="native"' not in str(e):
+                raise AssertionError(f"the refusal names no host backend: "
+                                     f"{e}") from None
+        else:
+            raise AssertionError(f"the card decoded a layout no kernel "
+                                 f"takes: {cfg}")
+        print(f"host backends, {cfg.variant.name} n_lanes={cfg.n_lanes} "
+              f"lanes_per_stream={cfg.lanes_per_stream} prob_bits="
+              f"{cfg.prob_bits}: native round trip of {data.size} bytes -> "
+              f"{len(blob)} bytes (compress {t_enc * 1e3:.1f} ms); numpy "
+              f"container equal at {small.size} bytes; the card refuses it, "
+              f"naming the host backends", flush=True)
 
 
 def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
@@ -486,7 +569,7 @@ def main(argv=None) -> int:
         return 1
 
     import ryg_rans_tpu_torch as rt
-    from ryg_rans_tpu_torch import _kernels, ops
+    from ryg_rans_tpu_torch import _kernels, native, ops
     from ryg_rans_tpu_torch.config import RansConfig
     from ryg_rans_tpu_torch.models import stats
     from ryg_rans_tpu_torch.config import Variant
@@ -522,6 +605,12 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {stem}: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    native.load()
+    gxx = ("cached" if native.build_seconds is None
+           else f"{native.build_seconds:.2f} s")
+    print(f"host core build (g++ {' '.join(native.GXX_FLAGS)}): "
+          f"{time.perf_counter() - t0:.2f} s (g++ run: {gxx})", flush=True)
 
     rng = np.random.default_rng(args.seed)
     data = skewed(rng, MAIN_LEN)
@@ -634,6 +723,12 @@ def main(argv=None) -> int:
         launches.update({k: launches.get(k, 0) + v for k, v in counts.items()
                          if k.startswith(stem)})
 
+    check_host_backends(
+        rt, RansConfig, Variant,
+        {"WORD": (cfg, data, blob),
+         **{name: (vcfg, data_new, vblob)
+            for name, (vcfg, _, vblob, _) in new_paths.items()}}, data)
+
     # -- phase 4: timing -------------------------------------------------------
     def wall(fn, reps=7):
         """Median and min of ``reps`` warm calls, in seconds."""
@@ -670,6 +765,35 @@ def main(argv=None) -> int:
                   f"({gb_new / med:.4f} GB/s), min {low * 1e3:.3f} ms "
                   f"[7 warm calls, host clock around synchronize, "
                   f"{data_new.size} bytes]", flush=True)
+
+    host = (f"host CPU {host_cpu()}, os.cpu_count() {os.cpu_count()}; card "
+            f"{smi.splitlines()[0]}")
+    for vname, vcfg, vdata, vblob in [
+            ("WORD", cfg, data, blob),
+            *((n, c, data_new, b) for n, (c, _, b, _) in new_paths.items())]:
+        for name, fn in [
+                ("compress", lambda: rt.compress(vdata, vcfg,
+                                                 backend="native")),
+                ("decompress", lambda: rt.decompress(vblob,
+                                                     backend="native"))]:
+            med, low = wall(fn, reps=5)
+            print(f"{vname} native {name} wall median {med * 1e3:.3f} ms "
+                  f"({vdata.size / 1e9 / med:.4f} GB/s), min "
+                  f"{low * 1e3:.3f} ms [5 calls, host clock, {vdata.size} "
+                  f"bytes; {host}]", flush=True)
+
+    # the native core alone on one 2^23-symbol block, on one thread
+    freqs, cum = stats.build_model(data, cfg.prob_bits)
+    blk = data[:cfg.block_symbols]
+    payload, words = native.encode(cfg, blk, freqs, cum)
+    enc1, _ = wall(lambda: native.encode(cfg, blk, freqs, cum), reps=5)
+    dec1, _ = wall(lambda: native.decode(cfg, payload, words, blk.size,
+                                         freqs, cum), reps=5)
+    print(f"WORD native core on one {blk.size}-symbol block, one thread: "
+          f"encode median {enc1 * 1e3:.3f} ms ({blk.size / enc1 / 1e9:.4f} "
+          f"GB/s), decode median {dec1 * 1e3:.3f} ms "
+          f"({blk.size / dec1 / 1e9:.4f} GB/s) [5 calls; {host}]",
+          flush=True)
 
     # kernels at the main path's full-block group: 8 blocks of 2^23
     N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
@@ -741,8 +865,11 @@ def main(argv=None) -> int:
                                          prob_bits=31),
                      data_new, data_new_dev)
 
-    profile(out_dir, {"compress": lambda: rt.compress(data),
-                      "decompress": lambda: rt.decompress(blob)})
+    profile(out_dir, {
+        "compress": lambda: rt.compress(data),
+        "decompress": lambda: rt.decompress(blob),
+        "native_compress": lambda: rt.compress(data, backend="native"),
+        "native_decompress": lambda: rt.decompress(blob, backend="native")})
 
     kernels = [
         {"name": "word_encode", "route": "cuda",

@@ -35,7 +35,8 @@ def check_shape(cfg: RansConfig, max_prob_bits: int) -> None:
     """Raise NotImplementedError for a config outside the device path:
     every variant's kernels take one substream per block, 128-16384 lanes,
     block_symbols a multiple of 4*n_lanes and prob_bits from 9 up to the
-    variant's ``max_prob_bits``."""
+    variant's ``max_prob_bits``.  The message names the host backends,
+    which code any config."""
     N = cfg.n_lanes
     if not (9 <= cfg.prob_bits <= max_prob_bits and 128 <= N <= 16384
             and cfg.lanes_per_stream == N
@@ -43,8 +44,9 @@ def check_shape(cfg: RansConfig, max_prob_bits: int) -> None:
         raise NotImplementedError(
             f"{cfg.variant.name} config outside the device path (prob_bits "
             f"9-{max_prob_bits}, one substream per block, 128-16384 lanes, "
-            f"block_symbols a multiple of 4*n_lanes): {cfg}; host backends "
-            "for it are ROADMAP.md queue 1, item 8")
+            f"block_symbols a multiple of 4*n_lanes): {cfg}; the host "
+            "backends code it: compress / decompress / decompress_block "
+            "with backend=\"native\" or backend=\"numpy\"")
 
 
 def check_config(cfg: RansConfig) -> None:

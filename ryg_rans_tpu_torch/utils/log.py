@@ -16,10 +16,12 @@ logger = logging.getLogger("ryg_rans_tpu_torch")
 
 
 def backend_choice(cfg, requested: str, chosen: str) -> None:
-    logger.debug("device=%s (requested %s) variant=%s prob_bits=%d "
-                 "n_lanes=%d block_symbols=%d", chosen, requested,
-                 cfg.variant.name, cfg.prob_bits, cfg.n_lanes,
-                 cfg.block_symbols)
+    """Log where a call codes: ``chosen`` is the device or the host backend
+    that runs, ``requested`` the argument that named it."""
+    logger.debug("coding on %s (requested %s) variant=%s prob_bits=%d "
+                 "n_lanes=%d lanes_per_stream=%d block_symbols=%d", chosen,
+                 requested, cfg.variant.name, cfg.prob_bits, cfg.n_lanes,
+                 cfg.lanes_per_stream, cfg.block_symbols)
 
 
 def container_summary(orig_len: int, packed_len: int, n_blocks: int) -> None:

@@ -163,18 +163,23 @@ def test_v1_container_decodes():
 
 
 def test_containers_outside_the_slice_raise():
-    """What no kernel takes raises NotImplementedError naming ROADMAP item
-    8, for every variant: several substreams per block, prob_bits 8, WORD
-    prob_bits 16 and fewer than 128 lanes."""
+    """What no kernel takes raises NotImplementedError naming the host
+    backends, for every variant: several substreams per block, prob_bits
+    8, WORD prob_bits 16 and fewer than 128 lanes.  The same blobs and
+    configs go through backend="native"."""
     data = skewed(5000, seed=13)
     multi = JConfig(variant=JVariant.BYTE, prob_bits=14, n_lanes=512,
                     lanes_per_stream=128)
     multi_blob = japi.compress(data, multi, backend="numpy")
+    hint = 'backend="native" or backend="numpy"'
     for call in (lambda: rt.decompress(multi_blob, device="cpu"),
                  lambda: rt.decompress_block(multi_blob, 0, device="cpu"),
                  lambda: rt.decompress_to_device(multi_blob, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match=hint):
             call()
+    assert rt.decompress(multi_blob, backend="native") == data.tobytes()
+    assert rt.decompress_block(multi_blob, 0, backend="native") == \
+        data.tobytes()
     for cfg in (rt.RansConfig(n_lanes=512, lanes_per_stream=128),
                 rt.RansConfig(variant=rt.Variant.RANS64, n_lanes=512,
                               lanes_per_stream=256),
@@ -183,7 +188,14 @@ def test_containers_outside_the_slice_raise():
                 rt.RansConfig(prob_bits=16),
                 rt.RansConfig(variant=rt.Variant.BYTE, n_lanes=64,
                               block_symbols=1 << 12)):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match=hint):
             rt.compress(data, cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=hint):
+            rt.compress_from_device(torch.from_numpy(data),
+                                    dataclasses.replace(cfg,
+                                                        checksum=False))
+        blob = rt.compress(data, cfg, backend="native")
+        assert blob == japi.compress(data, _jcfg(cfg), backend="numpy")
+        assert rt.decompress(blob, backend="native") == data.tobytes()
     with pytest.raises(ValueError, match="device"):
         rt.compress(data, device="meta")

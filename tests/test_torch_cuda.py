@@ -261,6 +261,28 @@ def test_entry_points_on_card_match_cpu(dev, size):
     assert word.decode_blocks.launches >= 2
 
 
+@pytest.mark.parametrize("variant", [None, rt.Variant.BYTE, rt.Variant.ALIAS,
+                                     rt.Variant.RANS64],
+                         ids=["WORD", "BYTE", "ALIAS", "RANS64"])
+def test_native_backend_matches_card_full_width(dev, variant):
+    """At the full-width auto shape (16384 lanes, a 2^23-symbol block and a
+    tail) the C++ host core writes the card's container, and each side
+    decodes the other's."""
+    size = (9 << 20) + 12_345
+    data = skewed(size, seed=size + 1)
+    cfg = rt.RansConfig.auto(size, variant)
+    assert cfg.n_lanes == 16384
+    mod = {None: word, rt.Variant.RANS64: rans64}.get(variant, byte)
+    mod.encode_blocks.launches = mod.decode_blocks.launches = 0
+    blob = rt.compress(data, cfg)
+    assert rt.compress(data, cfg, backend="native") == blob
+    assert rt.decompress(blob, backend="native") == data.tobytes()
+    assert rt.decompress(rt.compress(data, cfg, backend="native")) == \
+        data.tobytes()
+    assert mod.encode_blocks.launches >= 1
+    assert mod.decode_blocks.launches >= 1
+
+
 def test_raw_blocks_on_card(dev):
     cfg = rt.RansConfig(prob_bits=12, n_lanes=128, block_symbols=1 << 12)
     data = np.concatenate([skewed(1 << 12, seed=4), random_bytes(1 << 12, 5),

@@ -1,5 +1,7 @@
 """ryg_rans_tpu_torch stands alone: it imports neither JAX nor the
-reference package, and it never falls back to the CPU on its own."""
+reference package, not on the card's path nor on its host backends (the
+C++ core ``native`` and the NumPy oracle ``ops.reference_numpy``), and it
+never falls back to the CPU on its own."""
 
 import ast
 import os
@@ -22,6 +24,10 @@ import ryg_rans_tpu_torch as rt
 data = (np.arange(20000) % 7).astype(np.uint8).tobytes()
 blob = rt.compress(data, device="cpu")
 assert rt.decompress(blob, device="cpu") == data
+# the host backends run with no card and import nothing of JAX either
+for be in ("native", "numpy"):
+    assert rt.compress(data, backend=be) == blob
+    assert rt.decompress(blob, backend=be) == data
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ryg_rans_tpu" or m.startswith("ryg_rans_tpu."))

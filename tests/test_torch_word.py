@@ -177,25 +177,25 @@ def test_truncated_body_decodes_without_fault():
         word.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(variant=Variant.BYTE, prob_bits=8), "item 8"),
-    (dict(variant=Variant.ALIAS, n_lanes=64, block_symbols=1 << 12),
-     "item 8"),
-    (dict(variant=Variant.RANS64, n_lanes=1024, lanes_per_stream=256),
-     "item 8"),
-    (dict(prob_bits=16), "item 8"),
-    (dict(prob_bits=8), "item 8"),
-    (dict(n_lanes=64, block_symbols=1 << 12), "item 8"),
-    (dict(n_lanes=1024, lanes_per_stream=256), "item 8"),
-    (dict(n_lanes=1024, block_symbols=1024 * 6), "item 8"),
-    (dict(n_lanes=32768, block_symbols=1 << 17), "item 8"),
+@pytest.mark.parametrize("kwargs", [
+    dict(variant=Variant.BYTE, prob_bits=8),
+    dict(variant=Variant.ALIAS, n_lanes=64, block_symbols=1 << 12),
+    dict(variant=Variant.RANS64, n_lanes=1024, lanes_per_stream=256),
+    dict(prob_bits=16),
+    dict(prob_bits=8),
+    dict(n_lanes=64, block_symbols=1 << 12),
+    dict(n_lanes=1024, lanes_per_stream=256),
+    dict(n_lanes=1024, block_symbols=1024 * 6),
+    dict(n_lanes=32768, block_symbols=1 << 17),
 ])
-def test_configs_outside_the_slice_raise(kwargs, item):
-    """Each variant's module refuses the shapes no kernel takes."""
+def test_configs_outside_the_slice_raise(kwargs):
+    """Each variant's module refuses the shapes no kernel takes, naming the
+    host backends that code them."""
     cfg = RansConfig(**kwargs)
     codec = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
              Variant.RANS64: rans64}[cfg.variant]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError,
+                       match='backend="native" or backend="numpy"'):
         codec.check_config(cfg)
 
 
