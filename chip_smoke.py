@@ -36,7 +36,17 @@ Phases, each fatal on failure:
    for every variant (1 MiB) and 16384 lanes of 2048 a substream (8 MiB)
    round-trip through ``native``, ``backend="numpy"`` writes the same
    container (at 16 KB and 1 MiB), and the card's ``decompress`` of them
-   raises NotImplementedError naming the host backends;
+   raises NotImplementedError naming the host backends.  Then the file
+   path on each path's input (``compress_file`` / ``decompress_file``, 2
+   blocks a batch: the container equals ``compress``'s, every batch
+   reaches the kernels, and on the WORD main path each file call's peak
+   device memory is at most half its in-memory counterpart's), the CLI
+   (``python -m ryg_rans_tpu_torch`` compress, info, decompress and bench
+   as subprocesses), two spawned ranks over gloo on cuda:0 (the sharded
+   model, ``compress_multihost`` / ``decompress_multihost`` against the
+   single-process container, ``roundtrip_step`` of every variant at its
+   auto shape), a one-rank NCCL group's ``allgather_payloads``, and the
+   lane-coder API at 16384 lanes on the card;
 4. time each kernel (CUDA events) and its plain version on the full-block
    launch group of its path, and the warm wall time of each entry point of
    each path, and of native ``compress`` / ``decompress`` on each path's
@@ -62,8 +72,10 @@ import dataclasses
 import json
 import os
 import platform
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -555,6 +567,352 @@ def profile(out_dir: Path, calls: dict) -> None:
                                       row_limit=40))
 
 
+FILE_BATCH = 2  # blocks a batch on the file path: 2 of the main path's 9
+
+
+def peak_call(fn):
+    """(result, peak device bytes of ``fn`` above what was allocated when
+    it began): tensors left alive by earlier phases count for neither
+    side of a comparison."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def wall(fn, reps: int = 7) -> tuple[float, float]:
+    """Median and min of ``reps`` warm calls, host clock around
+    synchronize, in seconds."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)), min(times)
+
+
+def check_file_path(rt, stream_io, counters, paths, tmp: Path) -> dict:
+    """The file path on each path's input: ``compress_file`` (2 blocks a
+    batch) writes ``compress``'s container, ``decompress_file`` gives the
+    input back, every batch reaches the variant's kernels, and the peak
+    device memory of each file call beside its in-memory counterpart (on
+    the WORD main path at most half).  ``paths`` maps a name to (cfg or
+    None, input, ``compress``'s container).  Returns the launches of each
+    kernel over the file calls."""
+    total = dict.fromkeys(counters, 0)
+    for name, (cfg, data, blob) in paths.items():
+        src, dst, back = (tmp / f"{name}.{ext}" for ext in ("in", "trns",
+                                                             "back"))
+        src.write_bytes(data.tobytes())
+        c = cfg or rt.RansConfig.auto(data.size)
+        step = 4 * c.n_lanes
+        n_blocks = -(-(-(-data.size // step) * step) // c.block_symbols)
+        batches = -(-n_blocks // FILE_BATCH)
+        stem = {"WORD": "word", "RANS64": "rans64"}.get(c.variant.name,
+                                                       "byte")
+        launches, peaks = {}, {}
+        for call, fn in [
+                ("compress_file", lambda: stream_io.compress_file(
+                    str(src), str(dst), cfg, blocks_per_batch=FILE_BATCH)),
+                ("decompress_file", lambda: stream_io.decompress_file(
+                    str(dst), str(back), blocks_per_batch=FILE_BATCH))]:
+            for k in counters.values():
+                k.launches = 0
+            _, peaks[call] = peak_call(fn)
+            launches[call] = {k: f.launches for k, f in counters.items()
+                              if f.launches}
+            for k, v in launches[call].items():
+                total[k] += v
+        if dst.read_bytes() != blob:
+            raise AssertionError(f"{name}: compress_file's container "
+                                 "differs from compress's")
+        if back.read_bytes() != data.tobytes():
+            raise AssertionError(f"{name}: decompress_file does not give "
+                                 "the input back")
+        enc = launches["compress_file"].get(f"{stem}_encode", 0)
+        dec = launches["decompress_file"].get(f"{stem}_decode", 0)
+        if enc < batches or dec < batches:
+            raise AssertionError(f"{name}: {batches} batches but "
+                                 f"{enc} encode / {dec} decode launches")
+        _, peaks["compress"] = peak_call(lambda: rt.compress(data, cfg))
+        _, peaks["decompress"] = peak_call(lambda: rt.decompress(blob))
+        walls = {
+            "compress_file": wall(lambda: stream_io.compress_file(
+                str(src), str(dst), cfg, blocks_per_batch=FILE_BATCH), 3),
+            "decompress_file": wall(lambda: stream_io.decompress_file(
+                str(dst), str(back), blocks_per_batch=FILE_BATCH), 3),
+            "compress": wall(lambda: rt.compress(data, cfg), 3),
+            "decompress": wall(lambda: rt.decompress(blob), 3)}
+        ratio_c = peaks["compress_file"] / peaks["compress"]
+        ratio_d = peaks["decompress_file"] / peaks["decompress"]
+        mib = {k: round(v / 2**20, 3) for k, v in peaks.items()}
+        ms = {k: round(v[0] * 1e3, 3) for k, v in walls.items()}
+        print(f"file path {name}: {data.size} bytes, {n_blocks} blocks in "
+              f"{batches} batches of {FILE_BATCH}; container equal to "
+              f"compress's, round trip exact; launches {launches}; peak "
+              f"device MiB above the call's start {mib} (file / in-memory: "
+              f"compress {ratio_c:.4f}, decompress {ratio_d:.4f}); wall "
+              f"medians of 3, ms {ms}", flush=True)
+        if name == "WORD" and (ratio_c > 0.5 or ratio_d > 0.5):
+            raise AssertionError("the file path's peak device memory is "
+                                 "above half the in-memory path's")
+    return total
+
+
+def check_cli(here: Path, tmp: Path, file_blob: bytes, data) -> None:
+    """``python -m ryg_rans_tpu_torch`` compress, info, decompress and
+    bench as subprocesses on the WORD main path's file: the container is
+    ``compress_file``'s (``--prob-bits 11`` gives the auto config of
+    ``compress(data)``), the round trip is exact, bench prints decode
+    ok!."""
+    env = dict(os.environ, PYTHONPATH=str(here))
+    src, out, back = (str(tmp / n) for n in ("WORD.in", "cli.trns",
+                                             "cli.back"))
+
+    def cli(*args) -> str:
+        t = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "ryg_rans_tpu_torch", *args], cwd=here,
+            env=env, capture_output=True, text=True, timeout=300)
+        if run.returncode:
+            raise AssertionError(f"cli {args[0]} exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        lines = run.stdout.strip().splitlines()
+        print(f"cli {args[0]} ({time.perf_counter() - t:.2f} s with the "
+              f"interpreter's start): " + " | ".join(lines), flush=True)
+        return run.stdout
+
+    cli("compress", src, out, "--prob-bits", "11")
+    if Path(out).read_bytes() != file_blob:
+        raise AssertionError("the CLI's container differs from "
+                             "compress_file's")
+    if f"orig_len         {data.size}" not in cli("info", out):
+        raise AssertionError("cli info does not show orig_len")
+    cli("decompress", out, back)
+    if Path(back).read_bytes() != data.tobytes():
+        raise AssertionError("the CLI's round trip is not exact")
+    if "decode ok!" not in cli("bench", src, "--prob-bits", "11", "--runs",
+                               "3"):
+        raise AssertionError("cli bench did not print decode ok!")
+
+
+def rank_main(rank: int, world: int, store: str, tmp: str) -> None:
+    """One of the spawned ranks: a gloo group through a ``file://`` store,
+    every rank on cuda:0.  On the WORD main path's input the sharded model
+    equals the single-process one, ``compress_multihost`` gives the
+    single-process container's payloads block for block,
+    ``decompress_multihost`` round-trips, and ``roundtrip_step`` is exact
+    for every variant at its auto shape.  Writes its launch counts to
+    ``tmp/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ryg_rans_tpu_torch.config import RansConfig, Variant
+    from ryg_rans_tpu_torch.models import stats
+    from ryg_rans_tpu_torch.ops import byte, rans64, word
+    from ryg_rans_tpu_torch.parallel import mesh as pmesh
+    from ryg_rans_tpu_torch.parallel import multihost
+    from ryg_rans_tpu_torch.utils import container as cont
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        t0 = time.perf_counter()
+        mesh = pmesh.make_mesh(world, "cuda")
+        data = np.fromfile(Path(tmp) / "WORD.in", np.uint8)
+        blob = (Path(tmp) / "WORD.trns").read_bytes()
+        cfg = RansConfig.auto(data.size)
+        freqs, cum = pmesh.build_model_sharded(mesh, data, cfg.prob_bits)
+        want_f, _ = stats.build_model(data, cfg.prob_bits)
+        if not np.array_equal(freqs, want_f):
+            raise AssertionError(f"rank {rank}: the sharded model differs")
+        counters = {"word_encode": word.encode_blocks,
+                    "word_decode": word.decode_blocks,
+                    "byte_encode": byte.encode_blocks,
+                    "byte_decode": byte.decode_blocks,
+                    "rans64_encode": rans64.encode_blocks,
+                    "rans64_decode": rans64.decode_blocks}
+        for k in counters.values():
+            k.launches = 0
+        padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes,
+                                freqs).numpy()
+        payloads = multihost.compress_multihost(padded, cfg, freqs, cum)
+        c = cont.unpack(blob)
+        if c.raw is not None or len(payloads) != len(c.payloads) or not all(
+                np.array_equal(p, q[0]) for p, q in zip(payloads,
+                                                        c.payloads)):
+            raise AssertionError(f"rank {rank}: compress_multihost differs "
+                                 "from the single-process container")
+        out = multihost.decompress_multihost(payloads, cfg, padded.size,
+                                             freqs, cum)
+        if not np.array_equal(out[:data.size], data):
+            raise AssertionError(f"rank {rank}: decompress_multihost")
+        lo, hi = multihost.local_block_range(len(payloads))
+        mh = {k: f.launches for k, f in counters.items()}
+        for v in Variant:
+            n = MAIN_LEN if v == Variant.WORD else NEW_LEN
+            vcfg = RansConfig.auto(n) if v == Variant.WORD else \
+                RansConfig.auto(n, v)
+            vf, vc = pmesh.build_model_sharded(mesh, data[:n],
+                                               vcfg.prob_bits)
+            vpad = word.pad_block(torch.from_numpy(data[:n]), vcfg.n_lanes,
+                                  vf).numpy()
+            dec, _ = pmesh.roundtrip_step(mesh, vcfg, vpad, vf, vc)
+            if not np.array_equal(dec.cpu().numpy(),
+                                  pmesh.local_slice(mesh, vcfg, vpad)):
+                raise AssertionError(f"rank {rank}: roundtrip_step {v.name}")
+        torch.cuda.synchronize()
+        result = {"rank": rank, "blocks": [lo, hi], "multihost": mh,
+                  "all": {k: f.launches for k, f in counters.items()},
+                  "seconds": time.perf_counter() - t0}
+        print(f"processes: rank {rank} of {world} (gloo, cuda:0) owns "
+              f"blocks {lo}-{hi - 1} of the WORD main path; its launches "
+              f"in compress_multihost / decompress_multihost {mh}, and "
+              f"with roundtrip_step of every variant {result['all']}; "
+              f"{result['seconds']:.2f} s in the rank", flush=True)
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_main(rank: int, world: int, store: str, tmp: str) -> None:
+    """A one-rank NCCL group: ``allgather_payloads`` through NCCL on the
+    card (the route a machine with several cards takes)."""
+    import torch
+    import torch.distributed as dist
+
+    from ryg_rans_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        if str(multihost.comm_device()) != "cuda:0":
+            raise AssertionError("NCCL's tensors are not on the card")
+        local = [np.arange(n, dtype=np.uint16) for n in (5, 3, 9)]
+        got = multihost.allgather_payloads(local, cap_words=16)
+        if len(got) != 3 or not all(np.array_equal(a, b)
+                                    for a, b in zip(got, local)):
+            raise AssertionError("allgather_payloads through NCCL")
+        (Path(tmp) / "nccl.json").write_text(json.dumps({"ok": True}))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, args: tuple, timeout: float) -> None:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes (a fork
+    after CUDA initialises fails); a rank's exception raises here, as does
+    a group not done in ``timeout`` seconds, whose processes are killed."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"ranks not done after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+
+
+def check_processes(tmp: Path) -> None:
+    """Two ranks over gloo on cuda:0 (``rank_main``), then a one-rank NCCL
+    group (``nccl_main``)."""
+    t0 = time.perf_counter()
+    spawn(rank_main, 2, (str(tmp / "store"), str(tmp)), timeout=600)
+    for r in range(2):
+        res = json.loads((tmp / f"rank{r}.json").read_text())
+        if not (res["multihost"]["word_encode"]
+                and res["multihost"]["word_decode"]):
+            raise AssertionError(f"rank {r} launched no WORD kernel")
+        if not all(res["all"].values()):
+            raise AssertionError(f"rank {r}: a kernel was not launched")
+    print(f"processes: 2 ranks exact (sharded model, compress_multihost "
+          f"payloads equal to the single-process container's, "
+          f"decompress_multihost, roundtrip_step of WORD, BYTE, ALIAS, "
+          f"RANS64) in {time.perf_counter() - t0:.2f} s with spawning",
+          flush=True)
+    spawn(nccl_main, 1, (str(tmp / "nccl_store"), str(tmp)), timeout=300)
+    print("processes: a one-rank NCCL group gathered payloads on the card",
+          flush=True)
+
+
+def check_coder(coder, stats, oracle, RansConfig, Variant, data) -> None:
+    """The lane-coder API on the card at 16384 lanes: ``enc_put_symbol``
+    equals ``enc_put`` (BYTE, WORD, RANS64 at prob_bits 14 and 31), and a
+    block of 16 steps coded with ``enc_put`` gives the NumPy oracle's
+    stream and decodes back through ``dec_advance_symbol_step`` /
+    ``dec_renorm``."""
+    import torch
+
+    dev = torch.device("cuda")
+    N, T = 16384, 16
+    rng = np.random.default_rng(17)
+    for v, pb in ((Variant.BYTE, 14), (Variant.WORD, 12),
+                  (Variant.RANS64, 14), (Variant.RANS64, 31)):
+        cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N,
+                         block_symbols=N * T)
+        spec = cfg.spec
+        blk = data[:N * T]
+        freqs, cum = stats.build_model(blk, pb)
+        x = rng.integers(spec.L, spec.L << spec.word_bits, N,
+                         dtype=np.uint64)
+        x = torch.from_numpy(x.view(np.int64).copy()).to(dev)
+        sym = torch.from_numpy(rng.choice(np.nonzero(freqs)[0], N)).to(dev)
+        esyms = coder.enc_symbol_init(freqs, cum, pb, spec)
+        fast = coder.enc_put_symbol(x, sym, esyms, spec, pb)
+        slow = coder.enc_put(x, sym, freqs, cum, spec, pb)
+        if not all(torch.equal(a, b) for a, b in zip(fast, slow)):
+            raise AssertionError(f"coder {v.name} pb {pb}: enc_put_symbol "
+                                 "differs from enc_put")
+        # a block through enc_put, step by step from the last
+        grid = torch.from_numpy(blk.astype(np.int64)).to(dev).view(T, N)
+        x = coder.enc_init((N,), spec)
+        steps = []
+        for t in reversed(range(T)):
+            x, words, k = coder.enc_put(x, grid[t], freqs, cum, spec, pb)
+            steps.append((words, k))
+        R = spec.max_renorm
+        col = torch.arange(R, device=dev)
+        body = [w.T[col >= R - k.view(-1, 1)] for w, k in reversed(steps)]
+        stream = torch.cat([coder.enc_flush(x, spec).reshape(-1), *body])
+        ref = oracle.encode(cfg, blk, freqs, cum)[0].astype(np.int64)
+        if not np.array_equal(stream.cpu().numpy(), ref):
+            raise AssertionError(f"coder {v.name} pb {pb}: enc_put's "
+                                 "stream differs from the oracle's")
+        starts, fr = coder.dec_symbol_init(freqs, cum)
+        cum_t = torch.from_numpy(cum.astype(np.int64)).to(dev)
+        y = coder.dec_init(stream[:N * spec.state_words].view(N, -1), spec)
+        base = N * spec.state_words
+        for t in range(T):
+            s = torch.searchsorted(cum_t[1:], coder.dec_get(y, pb),
+                                   right=True)
+            if not torch.equal(s, grid[t]):
+                raise AssertionError(f"coder {v.name} pb {pb}: decode")
+            y = coder.dec_advance_symbol_step(y, starts, fr, s, pb)
+            y, base = coder.dec_renorm(y, stream, base, spec)
+        if int(base) != stream.numel():
+            raise AssertionError(f"coder {v.name} pb {pb}: stream not "
+                                 "consumed")
+        print(f"coder {v.name} prob_bits {pb}, {N} lanes on the card: "
+              f"enc_put_symbol equals enc_put; enc_put over {T} steps gives "
+              f"the oracle's stream ({stream.numel()} words), which decodes "
+              f"back", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -574,8 +932,11 @@ def main(argv=None) -> int:
     from ryg_rans_tpu_torch.models import stats
     from ryg_rans_tpu_torch.config import Variant
     from ryg_rans_tpu_torch.ops import byte, host_prep, rans64
+    from ryg_rans_tpu_torch.ops import coder
+    from ryg_rans_tpu_torch.ops import reference_numpy as oracle
     from ryg_rans_tpu_torch.ops import word as rt_word
     from ryg_rans_tpu_torch.utils import container as cont
+    from ryg_rans_tpu_torch.utils import stream_io
 
     here = Path(__file__).resolve().parent
     if Path(rt.__file__).resolve().parent.parent != here:
@@ -729,18 +1090,23 @@ def main(argv=None) -> int:
          **{name: (vcfg, data_new, vblob)
             for name, (vcfg, _, vblob, _) in new_paths.items()}}, data)
 
-    # -- phase 4: timing -------------------------------------------------------
-    def wall(fn, reps=7):
-        """Median and min of ``reps`` warm calls, in seconds."""
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return float(np.median(times)), min(times)
+    # the file path, the CLI and the process layer on each path's input,
+    # then the lane-coder API on the card
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        file_launches = check_file_path(
+            rt, stream_io, counters,
+            {"WORD": (None, data, blob),
+             **{name: (vcfg, data_new, vblob)
+                for name, (vcfg, _, vblob, _) in new_paths.items()}}, tmp)
+        check_cli(here, tmp, (tmp / "WORD.trns").read_bytes(), data)
+        check_processes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_coder(coder, stats, oracle, RansConfig, Variant, data)
+    launches = {k: launches.get(k, 0) + file_launches[k] for k in counters}
 
+    # -- phase 4: timing -------------------------------------------------------
     gb = data.size / 1e9
     for name, fn in [
             ("compress", lambda: rt.compress(data)),

@@ -119,44 +119,43 @@ def _host_pool_map(fn, items):
         return list(pool.map(fn, items))
 
 
-def _encode_device(cfg: RansConfig, t: torch.Tensor):
-    """Model and encode flat uint8 ``t`` with the kernels where it lies ->
-    (freqs, per-block [words], padded length)."""
-    codec = _codec(cfg)
+def _encode_payloads(cfg: RansConfig, padded, freqs, cum, device,
+                     backend: str | None = None) -> list[list[np.ndarray]]:
+    """Encode flat uint8 ``padded`` (a tensor or a host array, padded to a
+    multiple of 4*n_lanes) -> per-block, per-substream word arrays on the
+    host.
+
+    With ``backend=None`` the kernels code it on ``device`` (``padded``
+    goes there once, if it lies elsewhere); ``"numpy"`` or ``"native"``
+    code its blocks on the host, native on host threads.  The blocks keep
+    their order, so the words do not depend on the route."""
+    if backend is None:
+        codec = _codec(cfg)
+        t = torch.as_tensor(padded).to(device)
+        return [[w] for w in codec.encode(cfg, t, freqs, cum)]
+    host = (padded.cpu().numpy() if isinstance(padded, torch.Tensor)
+            else np.asarray(padded, np.uint8))
+    chunks = [host[off:off + size]
+              for off, size in _block_slices(cfg, host.size)]
+    if backend == "numpy":
+        return [oracle.encode(cfg, c, freqs, cum) for c in chunks]
+    wdt = cont.word_dtype(cfg.variant)
+
+    def enc_native(chunk):
+        payload, words = native.encode(cfg, chunk, freqs, cum)
+        return np.split(payload.view(wdt), np.cumsum(words)[:-1])
+    return _host_pool_map(enc_native, chunks)
+
+
+def _encode(cfg: RansConfig, t: torch.Tensor, device, backend):
+    """Model, pad and encode flat uint8 ``t`` where it lies -> (freqs,
+    per-block word arrays, padded length)."""
     with record_function("rans.model"):
         freqs, cum = _model(t, cfg.prob_bits)
     with record_function("rans.encode"):
         padded = word.pad_block(t, cfg.n_lanes, freqs)
-        payloads = [[w] for w in codec.encode(cfg, padded, freqs, cum)]
+        payloads = _encode_payloads(cfg, padded, freqs, cum, device, backend)
     return freqs, payloads, padded.numel()
-
-
-def _encode_host(cfg: RansConfig, be: str, data: np.ndarray):
-    """Model and encode ``data`` on host backend ``be`` -> (freqs,
-    per-block per-substream word arrays, padded length)."""
-    with record_function("rans.model"):
-        # torch.bincount of a view of the host bytes: the counts of
-        # stats.count_freqs, on all cores
-        freqs, cum = _model(torch.from_numpy(data), cfg.prob_bits)
-    with record_function("rans.encode"):
-        step = 4 * cfg.n_lanes
-        padded = data
-        if data.size % step:
-            padded = np.full(-(-data.size // step) * step,
-                             int(np.argmax(freqs)), np.uint8)
-            padded[:data.size] = data
-        chunks = [padded[off:off + size]
-                  for off, size in _block_slices(cfg, padded.size)]
-        if be == "numpy":
-            payloads = [oracle.encode(cfg, c, freqs, cum) for c in chunks]
-        else:
-            wdt = cont.word_dtype(cfg.variant)
-
-            def enc_native(chunk):
-                payload, words = native.encode(cfg, chunk, freqs, cum)
-                return np.split(payload.view(wdt), np.cumsum(words)[:-1])
-            payloads = _host_pool_map(enc_native, chunks)
-    return freqs, payloads, padded.size
 
 
 def _decode_host(cfg: RansConfig, be: str, blocks, sizes, freqs,
@@ -175,30 +174,83 @@ def _decode_host(cfg: RansConfig, be: str, blocks, sizes, freqs,
     return _host_pool_map(dec_native, list(zip(blocks, sizes)))
 
 
+def _decode_payloads(cfg: RansConfig, payloads, sizes, freqs, cum,
+                     raw=None, device="cuda",
+                     backend: str | None = None) -> torch.Tensor:
+    """Per-block payloads (padded symbol counts ``sizes``: equal but the
+    last) -> their symbols as one flat uint8 tensor of ``sum(sizes)``, on
+    ``device`` (the CPU for a host backend).
+
+    The coded blocks are decoded by the kernels on ``device`` or, with
+    ``backend``, on the host.  A block that ``raw`` marks (FLAG_RAW) is
+    its stored bytes, zero-padded to its padded size."""
+    codec = None if backend else _codec(cfg)
+    dev = torch.device("cpu") if backend else torch.device(device)
+    raw = (np.zeros(len(sizes), bool) if raw is None
+           else np.asarray(raw, bool))
+    coded = [i for i in range(len(sizes)) if not raw[i]]
+    with record_function("rans.decode"):
+        if backend:
+            blocks = _decode_host(cfg, backend, [payloads[i] for i in coded],
+                                  [sizes[i] for i in coded], freqs, cum)
+            dec = torch.from_numpy(np.concatenate(blocks) if blocks
+                                   else np.zeros(0, np.uint8))
+        else:
+            # the kernels' configs have one substream per block
+            dec = codec.decode(cfg, [payloads[i][0] for i in coded],
+                               [sizes[i] for i in coded], freqs, cum, dev)
+    if not raw.any():
+        return dec
+    pieces, pos = [], 0
+    for i, size in enumerate(sizes):
+        if raw[i]:
+            # stored verbatim and unpadded: zero-pad to the padded size
+            b = np.asarray(payloads[i][0], np.uint8)
+            if b.size > size:
+                raise ValueError("container corrupt: raw block larger "
+                                 "than its block")
+            piece = torch.zeros(size, dtype=torch.uint8, device=dev)
+            piece[:b.size] = torch.from_numpy(b.copy()).to(dev)
+            pieces.append(piece)
+        else:
+            pieces.append(dec[pos:pos + size])
+            pos += size
+    return torch.cat(pieces)
+
+
+def _raw_rule(cfg: RansConfig, payloads, lengths, fetch) -> np.ndarray:
+    """The raw-block rule (rans_byte.h:28-35): block ``b``, whose words
+    take at least its ``lengths[b]`` input bytes, is stored verbatim, its
+    payload replaced by ``[fetch(b)]``.  Returns the raw flags."""
+    wsize = np.dtype(cont.word_dtype(cfg.variant)).itemsize
+    raw = np.zeros(len(payloads), bool)
+    with record_function("rans.raw"):
+        for b, n in enumerate(lengths):
+            if sum(s.size for s in payloads[b]) * wsize >= n:
+                raw[b] = True
+                payloads[b] = [fetch(b)]
+    return raw
+
+
 def _pack_container(cfg: RansConfig, S: int, freqs, payloads,
                     padded_len: int, t: torch.Tensor | None,
                     host: np.ndarray | None) -> bytes:
     """Raw-block rule, CRCs and packing of ``S`` input bytes.  Raw blocks
     and CRCs take their bytes from ``host`` (the input on the host) or,
     when None, a raw block's bytes are fetched from ``t``."""
-    # raw-block fallback (rans_byte.h:28-35): store a block verbatim when
-    # coding would not shrink it
-    wsize = np.dtype(cont.word_dtype(cfg.variant)).itemsize
-    raw = np.zeros(len(payloads), bool)
-    slices = list(_block_slices(cfg, padded_len))
-    with record_function("rans.raw"):
-        for b, (off, size) in enumerate(slices):
-            end = min(off + size, S)
-            if sum(s.size for s in payloads[b]) * wsize >= end - off:
-                raw[b] = True
-                payloads[b] = [host[off:end].copy() if host is not None
-                               else t[off:end].cpu().numpy()]
+    slices = [(off, min(off + size, S))
+              for off, size in _block_slices(cfg, padded_len)]
 
+    def fetch(b):
+        off, end = slices[b]
+        return (host[off:end].copy() if host is not None
+                else t[off:end].cpu().numpy())
+    raw = _raw_rule(cfg, payloads, [end - off for off, end in slices], fetch)
     crcs = None
     if cfg.checksum:
         with record_function("rans.crc"):
-            crcs = np.array([cont.crc32(host[off:min(off + size, S)])
-                             for off, size in slices], np.uint32)
+            crcs = np.array([cont.crc32(host[off:end])
+                             for off, end in slices], np.uint32)
     with record_function("rans.pack"):
         blob = cont.pack(cfg, S, freqs, payloads, crcs,
                          raw if raw.any() else None)
@@ -215,19 +267,18 @@ def compress(data, cfg: RansConfig | None = None,
     padding, encode and compaction run there.  ``backend="native"`` or
     ``"numpy"`` codes on the host instead, for any config."""
     be = _backend(backend)
-    dev = None if be else _device(device)
+    dev = torch.device("cpu") if be else _device(device)
     data = _as_u8(data)
     cfg = cfg or RansConfig.auto(data.size)
     if data.size == 0:
         return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
-    if be:
-        _log_route(cfg, be, device, dev)
-        return _pack_container(cfg, data.size, *_encode_host(cfg, be, data),
-                               None, data)
-    _codec(cfg)  # refuse the config before the data goes to the device
+    if not be:
+        _codec(cfg)  # refuse the config before the data goes to the device
     _log_route(cfg, be, device, dev)
+    # a host backend counts and pads a view of the host bytes
     t = torch.from_numpy(data).to(dev)
-    return _pack_container(cfg, data.size, *_encode_device(cfg, t), t, data)
+    return _pack_container(cfg, data.size, *_encode(cfg, t, dev, be), t,
+                           data)
 
 
 def compress_from_device(t: torch.Tensor,
@@ -253,7 +304,8 @@ def compress_from_device(t: torch.Tensor,
     if t.numel() == 0:
         return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
     t = t.contiguous()
-    return _pack_container(cfg, t.numel(), *_encode_device(cfg, t), t, None)
+    return _pack_container(cfg, t.numel(), *_encode(cfg, t, t.device,
+                                                    None), t, None)
 
 
 def _decode_container(c: cont.Container, dev: torch.device,
@@ -261,42 +313,13 @@ def _decode_container(c: cont.Container, dev: torch.device,
     """All blocks of an unpacked container -> flat uint8 [orig_len] on
     ``dev``, decoded by the kernels there or, with ``be``, on the host
     (``dev`` is then the CPU)."""
-    cfg = c.cfg
-    codec = None if be else _codec(cfg)
     sizes = c.block_sizes()
     if len(c.payloads) != len(sizes):
         raise ValueError("container corrupt: block count does not match "
                          "orig_len")
-    raw = c.raw if c.raw is not None else np.zeros(len(sizes), bool)
-    coded = [i for i in range(len(sizes)) if not raw[i]]
-    cum = stats.calc_cum_freqs(c.freqs)
-    with record_function("rans.decode"):
-        if be:
-            blocks = _decode_host(cfg, be, [c.payloads[i] for i in coded],
-                                  [sizes[i] for i in coded], c.freqs, cum)
-            dec = torch.from_numpy(np.concatenate(blocks) if blocks
-                                   else np.zeros(0, np.uint8))
-        else:
-            # the kernels' configs have one substream per block
-            dec = codec.decode(cfg, [c.payloads[i][0] for i in coded],
-                               [sizes[i] for i in coded], c.freqs, cum, dev)
-    if not raw.any():
-        return dec[:c.orig_len]
-    pieces, pos = [], 0
-    for i, size in enumerate(sizes):
-        if raw[i]:
-            # stored verbatim and unpadded: zero-pad to the padded size
-            b = np.asarray(c.payloads[i][0], np.uint8)
-            if b.size > size:
-                raise ValueError("container corrupt: raw block larger "
-                                 "than its block")
-            piece = torch.zeros(size, dtype=torch.uint8, device=dev)
-            piece[:b.size] = torch.from_numpy(b.copy()).to(dev)
-            pieces.append(piece)
-        else:
-            pieces.append(dec[pos:pos + size])
-            pos += size
-    return torch.cat(pieces)[:c.orig_len]
+    return _decode_payloads(c.cfg, c.payloads, sizes, c.freqs,
+                            stats.calc_cum_freqs(c.freqs), c.raw, dev,
+                            be)[:c.orig_len]
 
 
 def _check_crc(c: cont.Container, block: int, data: np.ndarray) -> None:
@@ -349,10 +372,11 @@ def decompress_block(blob, block: int, device="cuda",
     block's original bytes (the last block may be short), CRC-checked.
     ``backend="native"`` or ``"numpy"`` decodes it on the host."""
     be = _backend(backend)
-    dev = None if be else _device(device)
+    dev = torch.device("cpu") if be else _device(device)
     c = cont.unpack(blob)
     cfg = c.cfg
-    codec = None if be else _codec(cfg)
+    if not be:
+        _codec(cfg)
     _log_route(cfg, be, device, dev)
     sizes = c.block_sizes()
     if len(c.payloads) != len(sizes):
@@ -361,18 +385,12 @@ def decompress_block(blob, block: int, device="cuda",
     if not 0 <= block < len(sizes):
         raise IndexError(f"block {block} out of range [0, {len(sizes)})")
     off = block * cfg.block_symbols
-    end = min(off + sizes[block], c.orig_len)
-    blk = c.payloads[block]
-    if c.raw is not None and c.raw[block]:
-        out = np.asarray(blk[0], np.uint8)
-    else:
-        cum = stats.calc_cum_freqs(c.freqs)
-        if be:
-            out = _decode_host(cfg, be, [blk], [sizes[block]], c.freqs,
-                               cum)[0]
-        else:
-            out = codec.decode(cfg, [blk[0]], [sizes[block]], c.freqs, cum,
-                               dev).cpu().numpy()
-        out = out[:end - off]
+    # a block of padding only (off past orig_len) holds no input bytes
+    end = max(min(off + sizes[block], c.orig_len), off)
+    out = _decode_payloads(
+        cfg, c.payloads[block:block + 1], sizes[block:block + 1], c.freqs,
+        stats.calc_cum_freqs(c.freqs),
+        None if c.raw is None else c.raw[block:block + 1], dev,
+        be).cpu().numpy()[:end - off]
     _check_crc(c, block, out)
     return out.tobytes()

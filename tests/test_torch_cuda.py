@@ -589,3 +589,131 @@ def test_k2_k6_launch_groups_of_one_and_four_blocks_and_a_tail(dev, variant,
                   pb)
     _enc_vs_plain(dev, t[:4 * B].view(4, B), freqs, cum, variant, N, pb,
                   table=False)
+
+
+# -- the file path, the process layer and the lane coder on the card
+
+
+@pytest.mark.parametrize("variant", [None, rt.Variant.BYTE, rt.Variant.ALIAS,
+                                     rt.Variant.RANS64],
+                         ids=["WORD", "BYTE", "ALIAS", "RANS64"])
+def test_compress_file_on_card_matches_compress(dev, tmp_path, variant):
+    """At a small auto shape (2048 lanes) cut to 2^19-symbol blocks (3
+    blocks and a tail), 2 blocks a batch: the file container is
+    compress's, and every batch reaches the variant's kernels."""
+    from ryg_rans_tpu_torch.utils import stream_io
+
+    size = (3 << 19) + 12_345
+    data = skewed(size, seed=21)
+    cfg = dataclasses.replace(rt.RansConfig.auto(size, variant),
+                              block_symbols=1 << 19)
+    mod = {None: word, rt.Variant.RANS64: rans64}.get(variant, byte)
+    src, dst, back = tmp_path / "in", tmp_path / "out", tmp_path / "back"
+    src.write_bytes(data.tobytes())
+    n_blocks = -(-size // cfg.block_symbols)
+    mod.encode_blocks.launches = mod.decode_blocks.launches = 0
+    stream_io.compress_file(str(src), str(dst), cfg, blocks_per_batch=2)
+    assert stream_io.decompress_file(str(dst), str(back),
+                                     blocks_per_batch=2) == size
+    # a batch of a full block and the tail takes two launches
+    batches = -(-n_blocks // 2)
+    assert batches <= mod.encode_blocks.launches <= n_blocks
+    assert batches <= mod.decode_blocks.launches <= n_blocks
+    assert dst.read_bytes() == rt.compress(data, cfg)
+    assert back.read_bytes() == data.tobytes()
+
+
+def test_two_rank_gloo_group_on_one_card(dev, tmp_path):
+    """Two spawned ranks over gloo, both on cuda:0: each rank's
+    roundtrip_step of the four variants and its multi-process round trip
+    are exact (checked in the rank), both gather the single-process
+    payloads, whose container is compress's, and both ranks launched
+    every kernel."""
+    import _torch_parallel_worker as worker
+    from ryg_rans_tpu_torch import api
+
+    world = 2
+    worker.spawn(worker.run, world, (str(tmp_path / "store"), str(tmp_path),
+                                     "cuda"), timeout=600)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    data = worker.multihost_input(world)
+    cfg = rt.RansConfig(prob_bits=12, n_lanes=worker.LANES,
+                        block_symbols=worker.BLOCK)
+    freqs, cum = stats.build_model(data, 12)
+    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
+    # the single-process payloads, before the raw-block rule
+    want = [p[0] for p in api._encode_payloads(cfg, padded, freqs, cum,
+                                                dev)]
+    for r in ranks:
+        assert int(r["mh_n"]) == len(want)
+        got = [r[f"mh_p{b}"] for b in range(len(want))]
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        assert (r["launches"] > 0).all(), r["launches"]
+    blob = api._pack_container(cfg, data.size, freqs, [[g] for g in got],
+                               padded.numel(), None, data)
+    assert blob == rt.compress(data, cfg)
+
+
+@pytest.mark.parametrize("variant,pb", [
+    (rt.Variant.BYTE, 14), (rt.Variant.WORD, 12), (rt.Variant.RANS64, 14),
+    (rt.Variant.RANS64, 31)], ids=["BYTE", "WORD", "RANS64", "RANS64-pb31"])
+def test_coder_reciprocal_paths_on_card(dev, variant, pb):
+    """At 16384 lanes on the card: the division-free enc_put_symbol equals
+    enc_put and the CPU's values, and the state words the coder flushes
+    decode back with dec_init."""
+    from ryg_rans_tpu_torch.ops import coder
+
+    spec = rt.RansConfig(variant=variant, prob_bits=pb).spec
+    data = np.concatenate([skewed(1 << 16, seed=pb),
+                           np.arange(256, dtype=np.uint8)])
+    freqs, cum = stats.build_model(data, pb)
+    rng = np.random.default_rng(pb)
+    n = 16384
+    x = rng.integers(spec.L, spec.L << spec.word_bits, n, dtype=np.uint64)
+    x = torch.from_numpy(x.view(np.int64).copy())
+    sym = torch.from_numpy(rng.choice(np.nonzero(freqs)[0], n))
+    esyms = coder.enc_symbol_init(freqs, cum, pb, spec, device=dev)
+    fast = coder.enc_put_symbol(x.to(dev), sym.to(dev), esyms, spec, pb)
+    slow = coder.enc_put(x.to(dev), sym.to(dev), freqs, cum, spec, pb)
+    cpu = coder.enc_put_symbol(
+        x, sym, coder.enc_symbol_init(freqs, cum, pb, spec, device="cpu"),
+        spec, pb)
+    for a, b, c in zip(fast, slow, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    head = coder.enc_flush(fast[0], spec)
+    assert torch.equal(coder.dec_init(head, spec), fast[0])
+
+
+@pytest.mark.parametrize("variant,pb", [(rt.Variant.BYTE, 14),
+                                        (rt.Variant.WORD, 12),
+                                        (rt.Variant.RANS64, 31)])
+def test_coder_stream_on_card_matches_oracle(dev, variant, pb):
+    """A block coded lane by lane with coder.enc_put_symbol on the card
+    (128 lanes, 64 steps) gives the NumPy oracle's stream."""
+    from ryg_rans_tpu_torch.ops import coder
+    from ryg_rans_tpu_torch.ops import reference_numpy as oracle
+
+    N, T = 128, 64
+    cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
+                        block_symbols=N * T)
+    spec = cfg.spec
+    data = skewed(N * T, seed=pb)
+    freqs, cum = stats.build_model(data, pb)
+    esyms = coder.enc_symbol_init(freqs, cum, pb, spec, device=dev)
+    x = coder.enc_init((N,), spec, device=dev)
+    grid = torch.from_numpy(data.astype(np.int64)).to(dev).view(T, N)
+    steps = []
+    for t in reversed(range(T)):
+        x, words, k = coder.enc_put_symbol(x, grid[t], esyms, spec, pb)
+        steps.append((words, k))
+    # order: step, then lane, then word within the lane
+    out = []
+    for words, k in reversed(steps):
+        w = words.T.cpu().numpy()
+        kk = k.cpu().numpy()
+        for lane in range(N):
+            out.extend(w[lane, spec.max_renorm - kk[lane]:])
+    stream = np.concatenate([coder.enc_flush(x, spec).cpu().numpy()
+                             .reshape(-1), np.array(out, np.int64)])
+    ref = oracle.encode(cfg, data, freqs, cum)[0]
+    assert np.array_equal(stream, ref.astype(np.int64))

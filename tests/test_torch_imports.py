@@ -1,7 +1,8 @@
 """ryg_rans_tpu_torch stands alone: it imports neither JAX nor the
 reference package, not on the card's path nor on its host backends (the
-C++ core ``native`` and the NumPy oracle ``ops.reference_numpy``), and it
-never falls back to the CPU on its own."""
+C++ core ``native`` and the NumPy oracle ``ops.reference_numpy``), nor in
+the file path, the CLI, the lane coder, the utilities or the process
+layer, and it never falls back to the CPU on its own."""
 
 import ast
 import os
@@ -18,9 +19,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ryg_rans_tpu_torch"
 
 _PROBE = """
+import os
 import sys
+import tempfile
 import numpy as np
+import torch
 import ryg_rans_tpu_torch as rt
+from ryg_rans_tpu_torch import __main__ as cli
+from ryg_rans_tpu_torch.config import BYTE_SPEC
+from ryg_rans_tpu_torch.models import stats
+from ryg_rans_tpu_torch.ops import coder
+from ryg_rans_tpu_torch.parallel import mesh, multihost
+from ryg_rans_tpu_torch.utils import debug, profiling, stream_io
 data = (np.arange(20000) % 7).astype(np.uint8).tobytes()
 blob = rt.compress(data, device="cpu")
 assert rt.decompress(blob, device="cpu") == data
@@ -28,6 +38,22 @@ assert rt.decompress(blob, device="cpu") == data
 for be in ("native", "numpy"):
     assert rt.compress(data, backend=be) == blob
     assert rt.decompress(blob, backend=be) == data
+# the file path, the CLI, the coder, the utilities and the process layer
+tmp = tempfile.mkdtemp()
+src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+with open(src, "wb") as f:
+    f.write(data)
+stream_io.compress_file(src, dst, device="cpu", blocks_per_batch=1)
+with open(dst, "rb") as f:
+    assert f.read() == blob
+assert cli.main(["info", dst]) == 0
+freqs, cum = stats.build_model(np.frombuffer(data, np.uint8), 12)
+e = coder.enc_symbol_init(freqs, cum, 12, BYTE_SPEC, device="cpu")
+x = coder.enc_init((4,), BYTE_SPEC, device="cpu")
+coder.enc_put_symbol(x, torch.tensor([0, 1, 2, 3]), e, BYTE_SPEC, 12)
+debug.poison(4)
+profiling.timed_runs(lambda: None, 1)
+assert multihost.process_count() == 1 and mesh.DATA_AXIS == "data"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ryg_rans_tpu" or m.startswith("ryg_rans_tpu."))
@@ -49,7 +75,7 @@ def test_subprocess_round_trip_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().endswith("\nok")  # after the info lines
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -64,7 +90,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "decode_probe.py"]))
+    + ["chip_smoke.py", "decode_probe.py"]
+    + [p.relative_to(ROOT).as_posix()
+       for p in (ROOT / "examples").glob("torch_*.py")]))
 def test_source_imports_no_jax(path):
     for mod in _imported_roots(ROOT / path):
         top = mod.split(".")[0]
