@@ -1,0 +1,9 @@
+"""K1 (``csrc/word_decode.cu``): percent of its device time that its
+algorithmic bytes (``roofline.decode_bytes``) take at the card's
+published bandwidth."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.roofline_share(ctx, "word_decode")
