@@ -56,9 +56,8 @@ Phases, each fatal on failure:
    (RANS64 prob_bits 14 and 31), print the launch plan's cluster size C,
    the CTAs (SMs at most) a launch group uses,
    ``cudaOccupancyMaxActiveClusters``, and the group's and one block's time
-   at every C the plan allows; for the encoders, the time a step; then
-   trace one WORD ``compress`` and ``decompress``, on the card and
-   through the native backend, with torch.profiler.
+   at every C the plan allows; for the encoders, the time a step.
+   ``portbench/run.py --trace 1`` traces the entry points.
 
 It prints the card's name and power limit, the measurements, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -524,49 +523,6 @@ def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
             "dec": (dec_ms, dec_plain_ms, dec_bound)}
 
 
-def profile(out_dir: Path, calls: dict) -> None:
-    """End of phase 4: one warm call of each entry point under torch.profiler.
-    Prints the wall time, the device-busy share (the summed device time of
-    kernels, copies and fills over the wall time) and the host time of each
-    ``rans.<phase>`` span of the API; the full op table goes to
-    ``out_dir/profile_<name>.txt``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t
-        device, spans = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CPU and e.name.startswith("rans."):
-                spans[e.name[5:]] = round(
-                    spans.get(e.name[5:], 0.0) + e.cpu_time_total / 1e3, 3)
-            # skip the profiler's own buffer setup and the device-side
-            # copies of the rans.* spans, which enclose the work
-            elif (e.device_type == DeviceType.CUDA
-                    and e.name != "Activity Buffer Request"
-                    and not e.name.startswith("rans.")):
-                kind = ("copy" if "Memcpy" in e.name else
-                        "fill" if "Memset" in e.name else "kernel")
-                device[kind] = device.get(kind, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        busy = sum(device.values())
-        print(f"profile {name}: wall {wall_s * 1e3:.3f} ms, device busy "
-              f"{busy:.3f} ms ({100 * busy / 1e3 / wall_s:.2f} %) "
-              f"{ {k: round(v, 3) for k, v in device.items()} }; host ms "
-              f"per span {spans}", flush=True)
-        (out_dir / f"profile_{name}.txt").write_text(
-            prof.key_averages().table(sort_by="cpu_time_total",
-                                      row_limit=40))
-
-
 FILE_BATCH = 2  # blocks a batch on the file path: 2 of the main path's 9
 
 
@@ -917,7 +873,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--out", default="smoke_out",
-                    help="directory for the build log and profiles")
+                    help="directory for the build log")
     args = ap.parse_args(argv)
 
     import torch
@@ -1230,12 +1186,6 @@ def main(argv=None) -> int:
                      dataclasses.replace(new_paths["RANS64"][0],
                                          prob_bits=31),
                      data_new, data_new_dev)
-
-    profile(out_dir, {
-        "compress": lambda: rt.compress(data),
-        "decompress": lambda: rt.decompress(blob),
-        "native_compress": lambda: rt.compress(data, backend="native"),
-        "native_decompress": lambda: rt.decompress(blob, backend="native")})
 
     kernels = [
         {"name": "word_encode", "route": "cuda",

@@ -21,10 +21,14 @@ backend="numpy")``: the same model (main.cpp:49-129), the same padding
 with the most frequent symbol, the same raw-block rule and the same
 per-block CRC.
 
-Each phase runs inside a ``torch.profiler.record_function`` span named
-``rans.<phase>`` (model, encode, raw, crc, pack, unpack, decode, fetch), so
-a profiler trace splits a call's wall time by phase; with no profiler
-running a span costs about a microsecond.
+Each phase runs inside a span (``utils.profiling.span``) named
+``rans.<phase>``: input, model, encode, raw, crc, pack, unpack, decode,
+fetch, output, with the codecs' own spans and ``rans.wait`` / ``rans.put``
+/ ``rans.fetch`` at every point where the host meets the device
+(``utils.profiling.SPANS``).  So a profiler trace splits a call's wall
+time by phase.  A span is a profiler annotation only while a profiler
+runs: with none, it costs one check (0.4-0.6 us on an H100 machine's
+8-core host, where an annotation entered with no profiler costs 10-11 us).
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import native
 from .config import RansConfig, Variant
@@ -44,6 +47,7 @@ from .ops import byte, rans64, word
 from .ops import reference_numpy as oracle
 from .utils import container as cont
 from .utils.log import backend_choice, container_summary
+from .utils.profiling import span, to_device, to_host
 
 _CODECS = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
            Variant.RANS64: rans64}
@@ -103,8 +107,9 @@ def _block_slices(cfg: RansConfig, padded_len: int):
 def _model(t: torch.Tensor, prob_bits: int):
     """Histogram where the data lies (one 256-count fetch), then the exact
     sequential normalization on the host."""
-    counts = torch.bincount(t, minlength=256).cpu().numpy()
-    return stats.build_model_from_counts(counts, prob_bits)
+    with span("rans.wait"):  # bincount reads the input's extent
+        hist = torch.bincount(t, minlength=256)
+    return stats.build_model_from_counts(to_host(hist), prob_bits)
 
 
 def _host_pool_map(fn, items):
@@ -131,8 +136,10 @@ def _encode_payloads(cfg: RansConfig, padded, freqs, cum, device,
     their order, so the words do not depend on the route."""
     if backend is None:
         codec = _codec(cfg)
-        t = torch.as_tensor(padded).to(device)
-        return [[w] for w in codec.encode(cfg, t, freqs, cum)]
+        if not (isinstance(padded, torch.Tensor)
+                and padded.device.type == torch.device(device).type):
+            padded = to_device(padded, device=device)
+        return [[w] for w in codec.encode(cfg, padded, freqs, cum)]
     host = (padded.cpu().numpy() if isinstance(padded, torch.Tensor)
             else np.asarray(padded, np.uint8))
     chunks = [host[off:off + size]
@@ -150,10 +157,11 @@ def _encode_payloads(cfg: RansConfig, padded, freqs, cum, device,
 def _encode(cfg: RansConfig, t: torch.Tensor, device, backend):
     """Model, pad and encode flat uint8 ``t`` where it lies -> (freqs,
     per-block word arrays, padded length)."""
-    with record_function("rans.model"):
+    with span("rans.model"):
         freqs, cum = _model(t, cfg.prob_bits)
-    with record_function("rans.encode"):
-        padded = word.pad_block(t, cfg.n_lanes, freqs)
+    with span("rans.encode"):
+        with span("rans.stage"):
+            padded = word.pad_block(t, cfg.n_lanes, freqs)
         payloads = _encode_payloads(cfg, padded, freqs, cum, device, backend)
     return freqs, payloads, padded.numel()
 
@@ -189,7 +197,7 @@ def _decode_payloads(cfg: RansConfig, payloads, sizes, freqs, cum,
     raw = (np.zeros(len(sizes), bool) if raw is None
            else np.asarray(raw, bool))
     coded = [i for i in range(len(sizes)) if not raw[i]]
-    with record_function("rans.decode"):
+    with span("rans.decode"):
         if backend:
             blocks = _decode_host(cfg, backend, [payloads[i] for i in coded],
                                   [sizes[i] for i in coded], freqs, cum)
@@ -201,21 +209,30 @@ def _decode_payloads(cfg: RansConfig, payloads, sizes, freqs, cum,
                                [sizes[i] for i in coded], freqs, cum, dev)
     if not raw.any():
         return dec
-    pieces, pos = [], 0
-    for i, size in enumerate(sizes):
-        if raw[i]:
-            # stored verbatim and unpadded: zero-pad to the padded size
-            b = np.asarray(payloads[i][0], np.uint8)
-            if b.size > size:
-                raise ValueError("container corrupt: raw block larger "
-                                 "than its block")
-            piece = torch.zeros(size, dtype=torch.uint8, device=dev)
-            piece[:b.size] = torch.from_numpy(b.copy()).to(dev)
-            pieces.append(piece)
-        else:
-            pieces.append(dec[pos:pos + size])
-            pos += size
-    return torch.cat(pieces)
+    with span("rans.raw"):
+        # stored verbatim and unpadded: one upload, then each zero-padded
+        # to its padded size
+        stored = {i: np.asarray(payloads[i][0], np.uint8)
+                  for i in range(len(sizes)) if raw[i]}
+        if any(b.size > sizes[i] for i, b in stored.items()):
+            raise ValueError("container corrupt: raw block larger than "
+                             "its block")
+        flat = to_device(np.concatenate(list(stored.values())), device=dev)
+        pieces, pos, at = [], 0, 0
+        for i, size in enumerate(sizes):
+            if raw[i]:
+                n = stored[i].size
+                piece = torch.zeros(size, dtype=torch.uint8, device=dev)
+                piece[:n] = flat[at:at + n]
+                pieces.append(piece)
+                at += n
+            else:
+                pieces.append(dec[pos:pos + size])
+                pos += size
+        # freed before the concatenation, so that a raw block's peak is
+        # its piece and the output, as with one upload a block
+        del flat
+        return torch.cat(pieces)
 
 
 def _raw_rule(cfg: RansConfig, payloads, lengths, fetch) -> np.ndarray:
@@ -224,7 +241,7 @@ def _raw_rule(cfg: RansConfig, payloads, lengths, fetch) -> np.ndarray:
     payload replaced by ``[fetch(b)]``.  Returns the raw flags."""
     wsize = np.dtype(cont.word_dtype(cfg.variant)).itemsize
     raw = np.zeros(len(payloads), bool)
-    with record_function("rans.raw"):
+    with span("rans.raw"):
         for b, n in enumerate(lengths):
             if sum(s.size for s in payloads[b]) * wsize >= n:
                 raw[b] = True
@@ -244,14 +261,14 @@ def _pack_container(cfg: RansConfig, S: int, freqs, payloads,
     def fetch(b):
         off, end = slices[b]
         return (host[off:end].copy() if host is not None
-                else t[off:end].cpu().numpy())
+                else to_host(t[off:end]))
     raw = _raw_rule(cfg, payloads, [end - off for off, end in slices], fetch)
     crcs = None
     if cfg.checksum:
-        with record_function("rans.crc"):
+        with span("rans.crc"):
             crcs = np.array([cont.crc32(host[off:end])
                              for off, end in slices], np.uint32)
-    with record_function("rans.pack"):
+    with span("rans.pack"):
         blob = cont.pack(cfg, S, freqs, payloads, crcs,
                          raw if raw.any() else None)
     container_summary(S, len(blob), len(payloads))
@@ -268,15 +285,16 @@ def compress(data, cfg: RansConfig | None = None,
     ``"numpy"`` codes on the host instead, for any config."""
     be = _backend(backend)
     dev = torch.device("cpu") if be else _device(device)
-    data = _as_u8(data)
-    cfg = cfg or RansConfig.auto(data.size)
-    if data.size == 0:
-        return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
-    if not be:
-        _codec(cfg)  # refuse the config before the data goes to the device
-    _log_route(cfg, be, device, dev)
-    # a host backend counts and pads a view of the host bytes
-    t = torch.from_numpy(data).to(dev)
+    with span("rans.input"):
+        data = _as_u8(data)
+        cfg = cfg or RansConfig.auto(data.size)
+        if data.size == 0:
+            return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
+        if not be:
+            _codec(cfg)  # refuse the config before the data goes there
+        _log_route(cfg, be, device, dev)
+        # a host backend counts and pads a view of the host bytes
+        t = torch.from_numpy(data) if be else to_device(data, device=dev)
     return _pack_container(cfg, data.size, *_encode(cfg, t, dev, be), t,
                            data)
 
@@ -333,20 +351,19 @@ def decompress(blob, device="cuda", backend: str | None = None) -> bytes:
     decodes on the host, any container."""
     be = _backend(backend)
     dev = torch.device("cpu") if be else _device(device)
-    with record_function("rans.unpack"):
+    with span("rans.unpack"):
         c = cont.unpack(blob)
     if c.orig_len == 0:
         return b""
     _log_route(c.cfg, be, device, dev)
-    dec = _decode_container(c, dev, be)
-    with record_function("rans.fetch"):
-        out = dec.cpu().numpy()
+    out = to_host(_decode_container(c, dev, be))
     B = c.cfg.block_symbols
-    with record_function("rans.crc"):
+    with span("rans.crc"):
         for b in range(len(c.block_sizes())):
             off = b * B
             _check_crc(c, b, out[off:off + B])
-    return out.tobytes()
+    with span("rans.output"):
+        return out.tobytes()
 
 
 def decompress_to_device(blob, device="cuda") -> torch.Tensor:
@@ -359,7 +376,7 @@ def decompress_to_device(blob, device="cuda") -> torch.Tensor:
     the kernels' configs are taken: ``decompress(..., backend=...)``
     decodes the others on the host."""
     dev = _device(device)
-    with record_function("rans.unpack"):
+    with span("rans.unpack"):
         c = cont.unpack(blob)
     if c.orig_len == 0:
         return torch.empty(0, dtype=torch.uint8, device=dev)
@@ -373,7 +390,8 @@ def decompress_block(blob, block: int, device="cuda",
     ``backend="native"`` or ``"numpy"`` decodes it on the host."""
     be = _backend(backend)
     dev = torch.device("cpu") if be else _device(device)
-    c = cont.unpack(blob)
+    with span("rans.unpack"):
+        c = cont.unpack(blob)
     cfg = c.cfg
     if not be:
         _codec(cfg)
@@ -387,10 +405,12 @@ def decompress_block(blob, block: int, device="cuda",
     off = block * cfg.block_symbols
     # a block of padding only (off past orig_len) holds no input bytes
     end = max(min(off + sizes[block], c.orig_len), off)
-    out = _decode_payloads(
+    out = to_host(_decode_payloads(
         cfg, c.payloads[block:block + 1], sizes[block:block + 1], c.freqs,
         stats.calc_cum_freqs(c.freqs),
         None if c.raw is None else c.raw[block:block + 1], dev,
-        be).cpu().numpy()[:end - off]
-    _check_crc(c, block, out)
-    return out.tobytes()
+        be))[:end - off]
+    with span("rans.crc"):
+        _check_crc(c, block, out)
+    with span("rans.output"):
+        return out.tobytes()

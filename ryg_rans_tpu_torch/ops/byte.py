@@ -24,6 +24,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
+from ..utils.profiling import span, to_device, to_host
 from . import decode_plan, host_prep
 from .word import (check_tables, i32_as_u32, u32_as_i32, assemble_blocks,
                    block_sizes, check_shape, groups, stack_blocks, staged)
@@ -81,10 +82,10 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
     if syms.device.type != "cuda":
         raise ValueError(f"no BYTE/ALIAS encode kernel for {syms.device}")
     if table is None:
-        table = torch.from_numpy(host_prep.byte_enc_table(
-            freq.cpu().numpy().view(np.uint32),
-            start.cpu().numpy().view(np.uint32), prob_bits,
-            remap is not None)).to(syms.device)
+        f, st = to_host(freq, start)
+        table = to_device(host_prep.byte_enc_table(
+            f.view(np.uint32), st.view(np.uint32), prob_bits,
+            remap is not None), device=syms.device)
     syms = staged(syms, table, (256, 4))
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int32, device=syms.device)
@@ -280,7 +281,8 @@ def compact_emissions(cells: torch.Tensor, states: torch.Tensor):
     cb = cells.view(torch.uint8).view(nb, S, 4)
     k = cb[:, :, 2]
     mask = torch.stack([k >= 1, k == 2], 2)
-    body = cb[:, :, [1, 0]][mask]
+    with span("rans.wait"):  # the select's size comes back to the host
+        body = cb[:, :, :2].flip(2)[mask]
     counts = k.sum(1, dtype=torch.int64)
     heads = states.contiguous().view(torch.uint8).view(nb, -1)
     return heads, body, counts
@@ -304,26 +306,27 @@ def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
     N, pb = cfg.n_lanes, cfg.prob_bits
     if padded.numel() % (4 * N):
         raise ValueError("input must be padded to a multiple of 4*n_lanes")
-    dev = padded.device
     alias = cfg.variant == Variant.ALIAS
-    freq, start = (torch.from_numpy(a).to(dev)
-                   for a in host_prep.enc_tables(freqs, cum_freqs))
-    remap = (torch.from_numpy(host_prep.alias_remap(freqs, cum_freqs, pb))
-             .to(dev) if alias else None)
-    table = torch.from_numpy(host_prep.byte_enc_table(
-        freqs, cum_freqs, pb, alias)).to(dev)
+    with span("rans.tables"):
+        freq, start, remap, table = to_device(
+            *host_prep.enc_tables(freqs, cum_freqs),
+            host_prep.alias_remap(freqs, cum_freqs, pb) if alias else None,
+            host_prep.byte_enc_table(freqs, cum_freqs, pb, alias),
+            device=padded.device)
     out: list[np.ndarray] = []
     pos = 0
     for _, nb, size in groups(block_sizes(cfg.block_symbols,
                                           padded.numel()), GROUP_SYMBOLS):
         syms = padded[pos:pos + nb * size].view(nb, size)
         pos += nb * size
-        cells, states = encode_blocks(syms, freq, start, remap, N, pb,
-                                      table)
-        heads, body, counts = compact_emissions(cells, states)
-        del cells
-        out += assemble_blocks(heads.cpu().numpy(), body.cpu().numpy(),
-                               counts.cpu().numpy())
+        with span("rans.launch"):
+            cells, states = encode_blocks(syms, freq, start, remap, N, pb,
+                                          table)
+        with span("rans.compact"):
+            heads, body, counts = compact_emissions(cells, states)
+            del cells
+        with span("rans.assemble"):
+            out += assemble_blocks(*to_host(heads, body, counts))
     return out
 
 
@@ -331,8 +334,7 @@ def dec_tables(cfg: RansConfig, freqs, cum_freqs, device) -> tuple:
     """The decode tables of ``cfg.variant`` on ``device``."""
     make = (host_prep.alias_dec_tables if cfg.variant == Variant.ALIAS
             else host_prep.dec_tables)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in make(freqs, cum_freqs, cfg.prob_bits))
+    return to_device(*make(freqs, cum_freqs, cfg.prob_bits), device=device)
 
 
 def decode(cfg: RansConfig, byte_blocks: list[np.ndarray], sizes: list[int],
@@ -342,13 +344,16 @@ def decode(cfg: RansConfig, byte_blocks: list[np.ndarray], sizes: list[int],
     check_config(cfg)
     N = cfg.n_lanes
     device = torch.device(device)
-    tables = dec_tables(cfg, freqs, cum_freqs, device)
+    with span("rans.tables"):
+        tables = dec_tables(cfg, freqs, cum_freqs, device)
     alias = cfg.variant == Variant.ALIAS
     parts = []
     for b0, nb, size in groups(sizes, GROUP_SYMBOLS):
-        stream = prep_decode(byte_blocks[b0:b0 + nb], N, device)
-        parts.append(decode_blocks(*stream, tables, size, cfg.prob_bits,
-                                   alias).view(-1))
+        with span("rans.stage"):
+            stream = prep_decode(byte_blocks[b0:b0 + nb], N, device)
+        with span("rans.launch"):
+            parts.append(decode_blocks(*stream, tables, size,
+                                       cfg.prob_bits, alias).view(-1))
     if not parts:
         return torch.empty(0, dtype=torch.uint8, device=device)
     return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -26,6 +26,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
+from ..utils.profiling import span, to_device, to_host
 from . import decode_plan, host_prep
 from .word import (check_tables, i32_as_u32, assemble_blocks, block_sizes,
                    check_shape, groups, stack_blocks, staged)
@@ -76,9 +77,10 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
     if syms.device.type != "cuda":
         raise ValueError(f"no RANS64 encode kernel for {syms.device}")
     if table is None:
-        table = torch.from_numpy(host_prep.rans64_enc_table(
-            freq.cpu().numpy().view(np.uint32),
-            start.cpu().numpy().view(np.uint32), prob_bits)).to(syms.device)
+        f, st = to_host(freq, start)
+        table = to_device(host_prep.rans64_enc_table(
+            f.view(np.uint32), st.view(np.uint32), prob_bits),
+            device=syms.device)
     syms = staged(syms, table, (256, 8))
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int64, device=syms.device)
@@ -245,7 +247,8 @@ def compact_emissions(cells: torch.Tensor, states: torch.Tensor):
     """
     nb, S = cells.shape
     emitted = cells != 0
-    body = cells.view(torch.int32).view(nb, S, 2)[:, :, 0][emitted]
+    with span("rans.wait"):  # the select's size comes back to the host
+        body = cells.view(torch.int32).view(nb, S, 2)[:, :, 0][emitted]
     heads = states.contiguous().view(torch.int32).view(nb, -1)
     return heads, body, emitted.sum(1)
 
@@ -267,32 +270,35 @@ def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
     N = cfg.n_lanes
     if padded.numel() % (4 * N):
         raise ValueError("input must be padded to a multiple of 4*n_lanes")
-    dev = padded.device
-    freq, start = (torch.from_numpy(a).to(dev)
-                   for a in host_prep.enc_tables(freqs, cum_freqs))
-    table = torch.from_numpy(host_prep.rans64_enc_table(
-        freqs, cum_freqs, cfg.prob_bits)).to(dev)
+    with span("rans.tables"):
+        freq, start, table = to_device(
+            *host_prep.enc_tables(freqs, cum_freqs),
+            host_prep.rans64_enc_table(freqs, cum_freqs, cfg.prob_bits),
+            device=padded.device)
     out: list[np.ndarray] = []
     pos = 0
     for _, nb, size in groups(block_sizes(cfg.block_symbols,
                                           padded.numel()), GROUP_SYMBOLS):
         syms = padded[pos:pos + nb * size].view(nb, size)
         pos += nb * size
-        cells, states = encode_blocks(syms, freq, start, N, cfg.prob_bits,
-                                      table)
-        heads, body, counts = compact_emissions(cells, states)
-        del cells
-        out += assemble_blocks(heads.cpu().numpy().view(np.uint32),
-                               body.cpu().numpy().view(np.uint32),
-                               counts.cpu().numpy())
+        with span("rans.launch"):
+            cells, states = encode_blocks(syms, freq, start, N,
+                                          cfg.prob_bits, table)
+        with span("rans.compact"):
+            heads, body, counts = compact_emissions(cells, states)
+            del cells
+        with span("rans.assemble"):
+            heads, body, counts = to_host(heads, body, counts)
+            out += assemble_blocks(heads.view(np.uint32),
+                                   body.view(np.uint32), counts)
     return out
 
 
 def dec_tables(cfg: RansConfig, freqs, cum_freqs, device) -> tuple:
     """(c2s or None, freq, cum) on ``device``."""
-    return tuple(None if a is None else torch.from_numpy(a).to(device)
-                 for a in host_prep.rans64_dec_tables(freqs, cum_freqs,
-                                                      cfg.prob_bits))
+    return to_device(*host_prep.rans64_dec_tables(freqs, cum_freqs,
+                                                  cfg.prob_bits),
+                     device=device)
 
 
 def decode(cfg: RansConfig, word_blocks: list[np.ndarray], sizes: list[int],
@@ -302,12 +308,15 @@ def decode(cfg: RansConfig, word_blocks: list[np.ndarray], sizes: list[int],
     check_config(cfg)
     N = cfg.n_lanes
     device = torch.device(device)
-    tables = dec_tables(cfg, freqs, cum_freqs, device)
+    with span("rans.tables"):
+        tables = dec_tables(cfg, freqs, cum_freqs, device)
     parts = []
     for b0, nb, size in groups(sizes, GROUP_SYMBOLS):
-        stream = prep_decode(word_blocks[b0:b0 + nb], N, device)
-        parts.append(decode_blocks(*stream, *tables, size,
-                                   cfg.prob_bits).view(-1))
+        with span("rans.stage"):
+            stream = prep_decode(word_blocks[b0:b0 + nb], N, device)
+        with span("rans.launch"):
+            parts.append(decode_blocks(*stream, *tables, size,
+                                       cfg.prob_bits).view(-1))
     if not parts:
         return torch.empty(0, dtype=torch.uint8, device=device)
     return parts[0] if len(parts) == 1 else torch.cat(parts)

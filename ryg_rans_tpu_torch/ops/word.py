@@ -22,6 +22,7 @@ import torch
 
 from .. import _kernels
 from ..config import RansConfig, Variant
+from ..utils.profiling import span, to_device, to_host
 from . import decode_plan, host_prep
 
 #: Symbols coded per kernel launch at most.  Bounds device memory: a group
@@ -117,9 +118,8 @@ def encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
     if syms.device.type != "cuda":
         raise ValueError(f"no WORD encode kernel for {syms.device}")
     if table is None:
-        table = torch.from_numpy(host_prep.word_enc_table(
-            freq.cpu().numpy(), start.cpu().numpy(), prob_bits)).to(
-                syms.device)
+        table = to_device(host_prep.word_enc_table(
+            *to_host(freq, start), prob_bits), device=syms.device)
     syms = staged(syms, table, (256, 4))
     nb, S = syms.shape
     cells = torch.empty((nb, S), dtype=torch.int32, device=syms.device)
@@ -288,7 +288,8 @@ def compact_emissions(cells: torch.Tensor, states: torch.Tensor):
     """
     nb, S = cells.shape
     emitted = cells >= 0x10000
-    body = cells.view(torch.int16).view(nb, S, 2)[:, :, 0][emitted]
+    with span("rans.wait"):  # the select's size comes back to the host
+        body = cells.view(torch.int16).view(nb, S, 2)[:, :, 0][emitted]
     heads = states.contiguous().view(torch.int16).view(nb, -1)
     return heads, body, emitted.sum(1)
 
@@ -308,11 +309,11 @@ def stack_blocks(blocks: list[np.ndarray], n_head: int, dtype, device):
                          "not fit its lane states")
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
     signed = np.dtype(f"<i{np.dtype(dtype).itemsize}")
-    words = torch.from_numpy(np.concatenate(blocks).view(signed)).to(device)
-    offsets = torch.from_numpy(offs).to(device)
+    words, offsets, body_len = to_device(
+        np.concatenate(blocks).view(signed), offs,
+        (lens - n_head).astype(np.int32), device=device)
     heads = words[offsets.view(-1, 1) + torch.arange(n_head, device=device)]
-    body_len = torch.from_numpy((lens - n_head).astype(np.int32))
-    return words, heads, offsets + n_head, body_len.to(device)
+    return words, heads, offsets + n_head, body_len
 
 
 def assemble_blocks(heads: np.ndarray, body: np.ndarray,
@@ -369,24 +370,27 @@ def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
     N = cfg.n_lanes
     if padded.numel() % (4 * N):
         raise ValueError("input must be padded to a multiple of 4*n_lanes")
-    dev = padded.device
-    freq, start = (torch.from_numpy(a).to(dev)
-                   for a in host_prep.enc_tables(freqs, cum_freqs))
-    table = torch.from_numpy(host_prep.word_enc_table(
-        freqs, cum_freqs, cfg.prob_bits)).to(dev)
+    with span("rans.tables"):
+        freq, start, table = to_device(
+            *host_prep.enc_tables(freqs, cum_freqs),
+            host_prep.word_enc_table(freqs, cum_freqs, cfg.prob_bits),
+            device=padded.device)
     out: list[np.ndarray] = []
     pos = 0
     for _, nb, size in groups(block_sizes(cfg.block_symbols,
                                           padded.numel())):
         syms = padded[pos:pos + nb * size].view(nb, size)
         pos += nb * size
-        cells, states = encode_blocks(syms, freq, start, N, cfg.prob_bits,
-                                      table)
-        heads, body, counts = compact_emissions(cells, states)
-        del cells
-        out += assemble_blocks(heads.cpu().numpy().view(np.uint16),
-                               body.cpu().numpy().view(np.uint16),
-                               counts.cpu().numpy())
+        with span("rans.launch"):
+            cells, states = encode_blocks(syms, freq, start, N,
+                                          cfg.prob_bits, table)
+        with span("rans.compact"):
+            heads, body, counts = compact_emissions(cells, states)
+            del cells
+        with span("rans.assemble"):
+            heads, body, counts = to_host(heads, body, counts)
+            out += assemble_blocks(heads.view(np.uint16),
+                                   body.view(np.uint16), counts)
     return out
 
 
@@ -397,13 +401,17 @@ def decode(cfg: RansConfig, word_blocks: list[np.ndarray], sizes: list[int],
     check_config(cfg)
     N = cfg.n_lanes
     device = torch.device(device)
-    c2s, freq, cum = (torch.from_numpy(a).to(device) for a in
-                      host_prep.dec_tables(freqs, cum_freqs, cfg.prob_bits))
+    with span("rans.tables"):
+        c2s, freq, cum = to_device(
+            *host_prep.dec_tables(freqs, cum_freqs, cfg.prob_bits),
+            device=device)
     parts = []
     for b0, nb, size in groups(sizes):
-        stream = prep_decode(word_blocks[b0:b0 + nb], N, device)
-        parts.append(decode_blocks(*stream, c2s, freq, cum, size,
-                                   cfg.prob_bits).view(-1))
+        with span("rans.stage"):
+            stream = prep_decode(word_blocks[b0:b0 + nb], N, device)
+        with span("rans.launch"):
+            parts.append(decode_blocks(*stream, c2s, freq, cum, size,
+                                       cfg.prob_bits).view(-1))
     if not parts:
         return torch.empty(0, dtype=torch.uint8, device=device)
     return parts[0] if len(parts) == 1 else torch.cat(parts)

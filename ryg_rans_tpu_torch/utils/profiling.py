@@ -11,6 +11,18 @@ repetitions, printing clocks/symbol and MiB/s (main.cpp:169-186).  Here:
 * ``dispatch_slope``: seconds per repetition from the slope between two
   repetition counts, which cancels what one call costs around the work;
 * ``report_line``: the reference's 'name: X ns/symbol (Y MiB/s)' line.
+
+The port's own tracing is here too: ``span``, the one way the package
+marks a phase (a ``rans.*`` ``record_function`` while a profiler runs, a
+shared no-op otherwise, so that with no profiler a span costs one check),
+and ``to_device`` / ``to_host``, through which every blocking copy of the
+entry points goes.  While a profiler runs, each copy helper first drains
+the stream under ``rans.wait``, so that its ``rans.put`` / ``rans.fetch``
+holds the copy alone; an operation that synchronises inside (a boolean
+mask select, a ``bincount``) runs whole in a ``rans.wait`` of its own.
+One ``rans.wait`` is one point at which the host drains the device.
+``SPANS`` lists every span name.  ``trace(dir)`` captures them, with the
+device's work on the same clock.
 """
 
 from __future__ import annotations
@@ -21,6 +33,73 @@ import time
 from typing import Callable
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+#: Every span the package records, and what it holds.
+SPANS = {
+    "rans.input": "compress: the input as a uint8 array and its upload",
+    "rans.model": "the histogram where the data lies, its fetch and the "
+                  "host normalisation",
+    "rans.encode": "padding and the codec's encode",
+    "rans.raw": "the raw-block rule (encode); the raw blocks' upload, "
+                "padding and concatenation (decode)",
+    "rans.crc": "the per-block CRCs on the host",
+    "rans.pack": "the container's bytes",
+    "rans.unpack": "the container parsed",
+    "rans.decode": "the codec's decode of the coded blocks",
+    "rans.output": "the decoded bytes as ``bytes``",
+    "rans.wait": "the host blocked until the device's stream drains",
+    "rans.put": "blocking copies, host to device",
+    "rans.fetch": "blocking copies, device to host",
+    "rans.tables": "a codec's host tables and their upload",
+    "rans.stage": "encode: the padding; decode: a launch group's words "
+                  "stacked, uploaded and their heads gathered",
+    "rans.launch": "a kernel wrapper's call: checks, allocation, launch",
+    "rans.compact": "a launch group's emitted words selected on the device",
+    "rans.assemble": "a launch group's words fetched and split per block",
+}
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context of the phase ``name`` (one of ``SPANS``): a
+    ``torch.profiler.record_function`` while a profiler runs, else a
+    shared no-op, so that a span costs one check with no profiler."""
+    return record_function(name) if _profiler_enabled() else _OFF
+
+
+def _drain(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _copies(fn, items, device: torch.device, name: str):
+    if _profiler_enabled():
+        with record_function("rans.wait"):
+            _drain(device)
+        with record_function(name):
+            out = tuple(fn(x) for x in items)
+    else:
+        out = tuple(fn(x) for x in items)
+    return out[0] if len(out) == 1 else out
+
+
+def to_device(*arrays, device):
+    """Host arrays (NumPy or CPU tensors; None passes through) -> tensors
+    on ``device``, one blocking copy each under one ``rans.put``.  One
+    array gives one tensor, several a tuple."""
+    device = torch.device(device)
+    return _copies(lambda a: None if a is None
+                   else torch.as_tensor(a).to(device),
+                   arrays, device, "rans.put")
+
+
+def to_host(*tensors):
+    """Tensors of one device -> NumPy arrays, one blocking copy each under
+    one ``rans.fetch``.  One tensor gives one array, several a tuple."""
+    return _copies(lambda t: t.cpu().numpy(), tensors, tensors[0].device,
+                   "rans.fetch")
 
 
 def _sync(out=None) -> None:

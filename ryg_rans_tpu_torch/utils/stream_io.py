@@ -28,6 +28,7 @@ from .. import api
 from ..config import RansConfig
 from ..models import stats
 from . import container as cont
+from .profiling import to_host
 
 _CHUNK = 1 << 24
 
@@ -183,9 +184,9 @@ def decompress_file(src: str, dst: str, device="cuda",
                             raise ValueError("container truncated")
                         blk.append(np.frombuffer(buf, dt))
                     payloads.append(blk)
-                out = api._decode_payloads(
+                out = to_host(api._decode_payloads(
                     cfg, payloads, sizes[batch.start:batch.stop], freqs, cum,
-                    raw, dev, be).cpu().numpy()
+                    raw, dev, be))
                 pos = 0
                 for bi in batch:
                     off = bi * B

@@ -12,6 +12,7 @@ set up for the port need not have; this file imports nothing of JAX.)
 Elsewhere every test skips inside its body.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -717,3 +718,91 @@ def test_coder_stream_on_card_matches_oracle(dev, variant, pb):
                              .reshape(-1), np.array(out, np.int64)])
     ref = oracle.encode(cfg, data, freqs, cum)[0]
     assert np.array_equal(stream, ref.astype(np.int64))
+
+
+def _drain_sites() -> dict[str, list[tuple[int, int]]]:
+    """{file: [(first line, last line)]} of the package's code that may
+    drain the card's stream: each ``with span("rans.wait")`` block, and the
+    copy helpers of ``utils/profiling.py``."""
+    import ast
+    from pathlib import Path
+
+    def is_wait(e):
+        return (isinstance(e, ast.Call) and getattr(e.func, "id", None) in
+                ("span", "record_function") and e.args
+                and isinstance(e.args[0], ast.Constant)
+                and e.args[0].value == "rans.wait")
+
+    sites = {}
+    for path in Path(rt.__file__).resolve().parent.rglob("*.py"):
+        ranges = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.With) and any(
+                    is_wait(i.context_expr) for i in node.items):
+                ranges.append((node.lineno, node.end_lineno))
+            elif (path.name == "profiling.py"
+                    and isinstance(node, ast.FunctionDef) and node.name in
+                    ("_drain", "_copies", "to_device", "to_host")):
+                ranges.append((node.lineno, node.end_lineno))
+        sites[str(path)] = ranges
+    return sites
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["plain", "traced"])
+@pytest.mark.parametrize("variant", [rt.Variant.WORD, rt.Variant.BYTE,
+                                     rt.Variant.ALIAS, rt.Variant.RANS64],
+                         ids=lambda v: v.name)
+def test_every_sync_is_a_marked_drain(dev, variant, traced):
+    """Each entry point, on text (coded, two launch groups) and on random
+    bytes (stored raw), under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the package's innermost frame at every synchronisation lies in a copy
+    helper or a ``rans.wait`` block, with and without a profiler."""
+    import traceback
+    import warnings
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sites = _drain_sites()
+    root = str(Path(rt.__file__).resolve().parent)
+    cfg = rt.RansConfig.auto(3 << 20, variant)
+    inputs = [skewed((3 << 20) + 4321, seed=3), random_bytes(1 << 20, 4)]
+    blobs = [rt.compress(x, cfg) for x in inputs]
+    dev_in = [torch.from_numpy(x).to(dev) for x in inputs]
+    cfg_dev = dataclasses.replace(cfg, checksum=False)
+    torch.cuda.synchronize()
+    syncs, stray = [], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(root)]
+        syncs.append(frames)
+        if not frames or not any(
+                a <= frames[-1].lineno <= b
+                for a, b in sites.get(frames[-1].filename, [])):
+            stray.append(frames[-1] if frames else "outside the package")
+
+    outs = []
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if traced else contextlib.nullcontext())
+    with prof, warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for x, t, blob in zip(inputs, dev_in, blobs):
+                outs.append((rt.compress(x.tobytes(), cfg),
+                             rt.compress_from_device(t, cfg_dev),
+                             rt.decompress(blob),
+                             rt.decompress_to_device(blob),
+                             rt.decompress_block(blob, 0)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert syncs and not stray, stray
+    for x, blob, (c, cd, d, dd, db) in zip(inputs, blobs, outs):
+        assert c == blob and d == x.tobytes()
+        assert cd == rt.compress(x, cfg_dev)
+        assert torch.equal(dd.cpu(), torch.from_numpy(x))
+        assert db == x[:cfg.block_symbols].tobytes()
