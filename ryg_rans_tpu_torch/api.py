@@ -29,6 +29,11 @@ fetch, output, with the codecs' own spans and ``rans.wait`` / ``rans.put``
 time by phase.  A span is a profiler annotation only while a profiler
 runs: with none, it costs one check (0.4-0.6 us on an H100 machine's
 8-core host, where an annotation entered with no profiler costs 10-11 us).
+
+A payload byte is copied once into a container and not at all out of one:
+``utils.container.unpack`` hands out views of the blob, read-only for a
+``bytes`` blob, and every path here concatenates them into a new array
+first, so none reaches PyTorch as a read-only array.
 """
 
 from __future__ import annotations
@@ -114,9 +119,9 @@ def _model(t: torch.Tensor, prob_bits: int):
 
 def _host_pool_map(fn, items):
     """Order-preserving map over independent blocks, on host threads when
-    there are several cores and several items (the native core releases
-    the GIL for each C call), else in this thread.  The results keep the
-    items' order, so a container does not depend on the worker count."""
+    there are several cores and several items (the native core and zlib
+    release the GIL for each C call), else in this thread.  The results keep
+    the items' order, so a container does not depend on the worker count."""
     workers = min(len(items), os.cpu_count() or 1)
     if workers <= 1:
         return [fn(it) for it in items]
@@ -235,6 +240,13 @@ def _decode_payloads(cfg: RansConfig, payloads, sizes, freqs, cum,
         return torch.cat(pieces)
 
 
+def _block_crcs(data: np.ndarray, slices) -> np.ndarray:
+    """CRC-32 of each ``data[off:end]`` of ``slices``, on host threads:
+    zlib reads each block in place and releases the GIL while it does."""
+    return np.array(_host_pool_map(lambda s: cont.crc32(data[s[0]:s[1]]),
+                                   slices), np.uint32)
+
+
 def _raw_rule(cfg: RansConfig, payloads, lengths, fetch) -> np.ndarray:
     """The raw-block rule (rans_byte.h:28-35): block ``b``, whose words
     take at least its ``lengths[b]`` input bytes, is stored verbatim, its
@@ -260,14 +272,13 @@ def _pack_container(cfg: RansConfig, S: int, freqs, payloads,
 
     def fetch(b):
         off, end = slices[b]
-        return (host[off:end].copy() if host is not None
-                else to_host(t[off:end]))
+        # a view of the host bytes: pack copies it into the container
+        return host[off:end] if host is not None else to_host(t[off:end])
     raw = _raw_rule(cfg, payloads, [end - off for off, end in slices], fetch)
     crcs = None
     if cfg.checksum:
         with span("rans.crc"):
-            crcs = np.array([cont.crc32(host[off:end])
-                             for off, end in slices], np.uint32)
+            crcs = _block_crcs(host, slices)
     with span("rans.pack"):
         blob = cont.pack(cfg, S, freqs, payloads, crcs,
                          raw if raw.any() else None)
@@ -340,9 +351,17 @@ def _decode_container(c: cont.Container, dev: torch.device,
                             be)[:c.orig_len]
 
 
-def _check_crc(c: cont.Container, block: int, data: np.ndarray) -> None:
-    if c.crcs is not None and cont.crc32(data) != int(c.crcs[block]):
-        raise ValueError(f"crc mismatch in block {block}")
+def _check_crcs(c: cont.Container, first: int, n: int,
+                data: np.ndarray) -> None:
+    """Check the CRCs of the ``n`` blocks from ``first`` on, whose bytes
+    ``data`` holds back to back (the last may be short or empty)."""
+    if c.crcs is None:
+        return
+    B = c.cfg.block_symbols
+    got = _block_crcs(data, [(i * B, (i + 1) * B) for i in range(n)])
+    bad = np.flatnonzero(got != c.crcs[first:first + n])
+    if bad.size:
+        raise ValueError(f"crc mismatch in block {first + int(bad[0])}")
 
 
 def decompress(blob, device="cuda", backend: str | None = None) -> bytes:
@@ -357,11 +376,8 @@ def decompress(blob, device="cuda", backend: str | None = None) -> bytes:
         return b""
     _log_route(c.cfg, be, device, dev)
     out = to_host(_decode_container(c, dev, be))
-    B = c.cfg.block_symbols
     with span("rans.crc"):
-        for b in range(len(c.block_sizes())):
-            off = b * B
-            _check_crc(c, b, out[off:off + B])
+        _check_crcs(c, 0, len(c.block_sizes()), out)
     with span("rans.output"):
         return out.tobytes()
 
@@ -411,6 +427,6 @@ def decompress_block(blob, block: int, device="cuda",
         None if c.raw is None else c.raw[block:block + 1], dev,
         be))[:end - off]
     with span("rans.crc"):
-        _check_crc(c, block, out)
+        _check_crcs(c, block, 1, out)
     with span("rans.output"):
         return out.tobytes()

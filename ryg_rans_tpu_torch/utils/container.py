@@ -30,6 +30,14 @@ Every block's symbol payload is the block's bytes padded to a multiple of
 4*n_lanes with the most frequent symbol; decode strips the padding using
 orig_len.  A raw block (flag bit1) is stored verbatim as unpadded uint8; its
 counts row is [n_raw_bytes, 0, ...].  numpy and zlib only: no torch here.
+
+The payload bytes are copied once on the way in and not at all on the way
+out: ``pack`` joins the payload arrays themselves into the result, ``crc32``
+reads its array in place, and the payloads ``unpack`` returns are views of
+the blob it was given (read-only for a ``bytes`` blob; a ``bytearray``
+blob changed later changes them, and cannot be resized while they live).
+A consumer that needs its own or a writable array copies it, as every
+caller in the package does by concatenating the payloads first.
 """
 
 from __future__ import annotations
@@ -231,7 +239,9 @@ def pack(cfg: RansConfig, orig_len: int, freqs: np.ndarray,
     for b, blk in enumerate(payloads):
         dt = np.uint8 if raw is not None and raw[b] else wdt
         for s in blk:
-            parts.append(np.ascontiguousarray(s, dt).tobytes())
+            # a view where s already is contiguous of dtype dt: the join
+            # is the only copy
+            parts.append(np.ascontiguousarray(s, dt))
     return b"".join(parts)
 
 
@@ -286,6 +296,8 @@ def read_header(f) -> tuple["Container", int]:
 
 
 def unpack(blob: bytes | memoryview) -> Container:
+    """Parse a whole container.  Its payloads are views of ``blob``, not
+    copies: read-only when ``blob`` is."""
     blob = memoryview(blob)
     if len(blob) < _HEADER.size:
         raise ValueError("container truncated")
@@ -338,7 +350,7 @@ def unpack(blob: bytes | memoryview) -> Container:
         blk = []
         for s in range(ns):
             n = int(counts[b, s])
-            blk.append(np.frombuffer(blob[off:off + n * wsize], dt).copy())
+            blk.append(np.frombuffer(blob[off:off + n * wsize], dt))
             off += n * wsize
         payloads.append(blk)
     if off != len(blob):
@@ -350,4 +362,6 @@ def unpack(blob: bytes | memoryview) -> Container:
 
 
 def crc32(data: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(data, np.uint8).tobytes())
+    """CRC-32 of ``data``'s bytes, read in place when it is a contiguous
+    uint8 array."""
+    return zlib.crc32(np.ascontiguousarray(data, np.uint8))

@@ -3,6 +3,7 @@ package's ``compress(data, backend="numpy")``: byte-identical containers,
 and each side decodes the other's."""
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -199,3 +200,53 @@ def test_containers_outside_the_slice_raise():
         assert rt.decompress(blob, backend="native") == data.tobytes()
     with pytest.raises(ValueError, match="device"):
         rt.compress(data, device="meta")
+
+
+@pytest.mark.parametrize("backend", [None, "numpy", "native"])
+@pytest.mark.parametrize("variant,prob_bits", [
+    (rt.Variant.WORD, 12), (rt.Variant.BYTE, 12), (rt.Variant.ALIAS, 12),
+    (rt.Variant.RANS64, 14)], ids=["WORD", "BYTE", "ALIAS", "RANS64"])
+def test_bytes_blob_decodes_without_warnings(variant, prob_bits, backend):
+    """``unpack`` hands out read-only views of a ``bytes`` blob; no path
+    gives one to PyTorch (which warns on a non-writable array), whole,
+    block by block and, on the kernels' route, into a tensor.  The middle
+    block is stored raw."""
+    cfg = rt.RansConfig(variant=variant, prob_bits=prob_bits, n_lanes=128,
+                        block_symbols=1 << 12)
+    data = np.concatenate([skewed(1 << 12, seed=14),
+                           random_bytes(1 << 12, 15), skewed(3001, seed=16)])
+    blob = rt.compress(data, cfg, device="cpu")
+    assert isinstance(blob, bytes)
+    assert tcont.unpack(blob).raw.tolist() == [False, True, False]
+    route = ({"device": "cpu"} if backend is None
+             else {"backend": backend})
+    B = cfg.block_symbols
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert rt.decompress(blob, **route) == data.tobytes()
+        for b in range(3):
+            assert rt.decompress_block(blob, b, **route) == \
+                data[b * B:(b + 1) * B].tobytes()
+        if backend is None:
+            assert torch.equal(rt.decompress_to_device(blob, device="cpu"),
+                               torch.from_numpy(data))
+
+
+def test_crc_mismatch_names_the_first_bad_block():
+    """The blocks' CRCs are computed together; the error still names the
+    first block whose bytes do not match."""
+    cfg = rt.RansConfig(prob_bits=12, n_lanes=128, block_symbols=1 << 12)
+    data = skewed(4 << 12, seed=17)
+    blob = rt.compress(data, cfg, device="cpu")
+    c = tcont.unpack(blob)
+    bad = bytearray(blob)
+    for b in (1, 3):  # an early body word of blocks 1 and 3
+        start = len(blob) - sum(s.nbytes for blk in c.payloads[b:]
+                                for s in blk)
+        bad[start + 4 * cfg.n_lanes + 100] ^= 0x10
+    with pytest.raises(ValueError, match="crc mismatch in block 1"):
+        rt.decompress(bytes(bad), device="cpu")
+    with pytest.raises(ValueError, match="crc mismatch in block 3"):
+        rt.decompress_block(bytes(bad), 3, device="cpu")
+    assert rt.decompress_block(bytes(bad), 2, device="cpu") == \
+        data[2 << 12:3 << 12].tobytes()

@@ -3,6 +3,7 @@ byte-identical packing, cross unpacking and the typed errors, on synthetic
 payloads."""
 
 import io
+import zlib
 
 import numpy as np
 import pytest
@@ -187,3 +188,95 @@ def test_crc32_and_word_dtypes_alike():
     assert tcont.crc32(data) == jcont.crc32(data)
     for v in JVariant:
         assert tcont.word_dtype(TVariant(int(v))) == jcont.word_dtype(v)
+
+
+def _relaid(payloads, layout):
+    """The same payload values in another memory layout: strided
+    (non-contiguous), a wider dtype (``pack`` casts them back), or views
+    into one larger array."""
+    if layout == "strided":
+        out = []
+        for blk in payloads:
+            row = []
+            for s in blk:
+                wide = np.zeros(2 * s.size, s.dtype)
+                wide[::2] = s
+                row.append(wide[::2])
+            out.append(row)
+        return out
+    if layout == "wider":
+        return [[s.astype(np.int64) for s in blk] for blk in payloads]
+    out = []  # "views": a block's substreams, slices of one array
+    for blk in payloads:
+        big = np.concatenate([np.zeros(1, blk[0].dtype)] + blk)
+        ends = 1 + np.cumsum([s.size for s in blk])
+        out.append([big[e - s.size:e] for s, e in zip(blk, ends)])
+    return out
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("raw_block", [None, 1])
+@pytest.mark.parametrize("layout", ["strided", "wider", "views"])
+@pytest.mark.parametrize("case", [0, 2, 3, 4])
+def test_pack_is_byte_identical_for_any_layout(case, layout, raw_block,
+                                               version):
+    """``pack`` joins the payload arrays without an intermediate copy; the
+    bytes stay the reference's for payloads that are non-contiguous, of a
+    wider dtype, or views into a larger array."""
+    jc, tc = _configs(**CASES[case])
+    orig_len = 3 * jc.block_symbols - 5
+    freqs, payloads, crcs, raw = _contents(jc, orig_len, case,
+                                           raw_block=raw_block)
+    relaid = _relaid(payloads, layout)
+    jblob = jcont.pack(jc, orig_len, freqs, payloads, crcs, raw, version)
+    assert tcont.pack(tc, orig_len, freqs, relaid, crcs, raw,
+                      version) == jblob
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("case", [0, 2, 3, 4, 5])
+def test_unpack_payloads_are_views_of_the_blob(case, version):
+    """``unpack`` hands out views of the blob, equal to the reference's
+    copies: read-only for a ``bytes`` blob, writable (and aliasing it) for
+    a ``bytearray`` one."""
+    jc, tc = _configs(**CASES[case])
+    orig_len = 2 * jc.block_symbols + 17
+    freqs, payloads, crcs, raw = _contents(jc, orig_len, case, raw_block=0)
+    blob = tcont.pack(tc, orig_len, freqs, payloads, crcs, raw, version)
+    c = tcont.unpack(blob)
+    _same_container(c, jcont.unpack(blob))
+    whole = np.frombuffer(blob, np.uint8)
+    held = [s for blk in c.payloads for s in blk if s.size]
+    assert held
+    for s in held:
+        assert np.shares_memory(s, whole)
+        assert not s.flags.writeable
+        with pytest.raises(ValueError):
+            s[0] = 1
+    mutable = bytearray(blob)
+    s = next(s for blk in tcont.unpack(mutable).payloads for s in blk
+             if s.size)
+    at = s.ctypes.data - np.frombuffer(mutable, np.uint8).ctypes.data
+    before = s[0]
+    mutable[at] ^= 0xFF
+    assert s[0] != before
+
+
+CRC_INPUTS = {
+    "empty": lambda rng: np.zeros(0, np.uint8),
+    "odd_offset": lambda rng: rng.integers(0, 256, 10_001, np.uint8)[3:9_998],
+    "odd_offset_1": lambda rng: rng.integers(0, 256, 4097, np.uint8)[1:],
+    "strided": lambda rng: rng.integers(0, 256, 30_000, np.uint8)[::3],
+    "column": lambda rng: rng.integers(0, 256, (500, 7), np.uint8)[:, 2],
+    "2d": lambda rng: rng.integers(0, 256, (64, 33), np.uint8),
+    "one_byte": lambda rng: rng.integers(0, 256, 1, np.uint8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CRC_INPUTS))
+def test_crc32_reads_any_layout(name):
+    """``crc32`` reads its array in place and agrees with the CRC of its
+    bytes, and with the reference's, whatever the layout."""
+    arr = CRC_INPUTS[name](np.random.default_rng(len(name)))
+    want = zlib.crc32(arr.tobytes())
+    assert tcont.crc32(arr) == want == jcont.crc32(arr)
