@@ -16,12 +16,21 @@ The widths are the configuration's own keys; the parameters are its
 one call from a generator seeded from the seed: N(0, ``std``) for matrices
 and ``norm_mean`` + N(0, ``std``) for norms, in bf16.  Each tensor gives
 two planes, uint8 tensors on ``device``: ``.hi`` (sign and exponent, the
-high byte) and ``.lo``.
+high byte) and ``.lo``.  ``tiny`` cuts a configuration to the widths the
+CPU tests code in a moment.
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
+
+#: The widths of a layer small enough for the plain versions on the CPU.
+TINY_LAYER = dict(hidden_size=64, num_attention_heads=2, qk_nope_head_dim=16,
+                  qk_rope_head_dim=8, v_head_dim=16, kv_lora_rank=32,
+                  n_routed_experts=2, moe_intermediate_size=48,
+                  n_shared_experts=2)
 
 
 def layer_tensors(c: dict) -> list[tuple[str, tuple[int, ...]]]:
@@ -76,3 +85,10 @@ def make(config: dict, seed: int, device) -> list[tuple[str, torch.Tensor]]:
                    (f"{name}.lo", b[:, 0].contiguous())]
     del flat
     return planes
+
+
+def tiny(config: dict) -> dict:
+    """``config`` at the widths of ``TINY_LAYER``."""
+    c = copy.deepcopy(config)
+    c.update(TINY_LAYER)
+    return c

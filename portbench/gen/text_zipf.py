@@ -7,10 +7,13 @@ seed, a buffer at a time, and handed over as host ``bytes``: what a user
 reads from a file.
 
 Parameters, the configuration's ``data``: ``buffers``, ``bytes`` (each),
-``alphabet_first``, ``alphabet_size``, ``zipf_exponent``.
+``alphabet_first``, ``alphabet_size``, ``zipf_exponent``.  ``tiny`` cuts a
+configuration to the size the CPU tests code in a moment.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -31,3 +34,10 @@ def make(config: dict, seed: int, device) -> list[tuple[str, bytes]]:
                     .tobytes()))
         del u, idx
     return out
+
+
+def tiny(config: dict) -> dict:
+    """``config`` with three buffers of 40,000 bytes."""
+    c = copy.deepcopy(config)
+    c["data"].update(buffers=3, bytes=40000)
+    return c

@@ -4,8 +4,10 @@ the judgement against the reference, and the metrics.
 A cell ``<config>.<mix>`` is resolved by name: ``BENCHMARK.json`` names the
 configuration's file and the metrics that the cell reports,
 ``traffic/<mix>.json`` the mix, ``gen/<generator>.py`` the inputs,
-``metrics/<metric>.py`` each metric's reader and ``kernels/*.json`` the
-kernels.  Nothing here names a configuration, a mix or a metric.
+``metrics/<metric>.py`` each metric's reader, ``kernels/<kernel>.json``
+a kernel and ``rooflines/<kernel>.py`` the bytes it counts, where it is no
+coder.
+Nothing here names a configuration, a mix, a metric or a kernel.
 
 The loop is closed, with one caller: a call starts when the last returned,
 as in a pipeline that waits for each reply.  The inputs are made from the
@@ -57,6 +59,10 @@ def load_module(kind: str, name: str):
 
 
 def load_kernels() -> dict[str, dict]:
+    """Every ``kernels/<name>.json`` by name.  A file states the kernel's
+    ``symbol`` in the device trace, its ``direction`` (``encode`` or
+    ``decode`` for a coder, ``both`` for any other kernel), the
+    ``variants`` it serves and its wrapper's launch ``counter``."""
     return {p.stem: load_json(p)
             for p in sorted((HERE / "kernels").glob("*.json"))}
 
@@ -277,7 +283,9 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, program,
                     one(i)
                 _sync(device)
                 window_s = time.perf_counter() - t0
-        launches = {k: program.launches(v["counter"]) - before[k]
+        # a kernel whose counter the program lacks keeps None
+        launches = {k: None if before[k] is None
+                    else program.launches(v["counter"]) - before[k]
                     for k, v in kernels.items()}
         trace = trace_mod.from_profiler(prof.events())
         del prof

@@ -1,5 +1,5 @@
 """K1 (``csrc/word_decode.cu``): percent of its device time that its
-algorithmic bytes (``roofline.decode_bytes``) take at the card's
+algorithmic bytes (``rooflines/coder_decode.py``) take at the card's
 published bandwidth."""
 
 from portbench import readers

@@ -1,5 +1,5 @@
 """K2 (``csrc/word_encode.cu``): percent of its device time that its
-algorithmic bytes (``roofline.encode_bytes``) take at the card's
+algorithmic bytes (``rooflines/coder_encode.py``) take at the card's
 published bandwidth."""
 
 from portbench import readers

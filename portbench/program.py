@@ -66,8 +66,17 @@ class Program:
         return self._dec(blob, **self._host)
 
     @staticmethod
-    def launches(counter: str) -> int:
+    def launches(counter: str) -> int | None:
         """The launch counter ``module:function`` of a kernel's wrapper
-        (``function.launches``), as the program keeps it."""
+        (``function.launches``), as the program keeps it; None where the
+        program has no such module or function (a kernel file added for a
+        kernel that this program predates)."""
         module, fn = counter.split(":")
-        return int(getattr(importlib.import_module(module), fn).launches)
+        try:
+            mod = importlib.import_module(module)
+        except ModuleNotFoundError as e:
+            if module == e.name or module.startswith(f"{e.name}."):
+                return None
+            raise
+        wrapper = getattr(mod, fn, None)
+        return None if wrapper is None else int(wrapper.launches)

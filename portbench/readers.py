@@ -47,13 +47,18 @@ def host_ms_per_call(ctx, direction: str, spans) -> float | None:
 
 
 def launches_per_call(ctx, direction: str) -> float | None:
-    """Kernel launches of ``direction``'s kernels (every file under
-    ``kernels/`` of that direction) in the traced window, per call."""
+    """Kernel launches of ``direction``'s coders (every file under
+    ``kernels/`` of that direction; a ``both`` kernel is no coder) in the
+    traced window, per call; None where the program keeps no counter of
+    one."""
     n = _calls(ctx, direction)
     if ctx.launches is None or not n:
         return None
-    return sum(v for k, v in ctx.launches.items()
-               if ctx.kernels[k]["direction"] == direction) / n
+    counts = [v for k, v in ctx.launches.items()
+              if ctx.kernels[k]["direction"] == direction]
+    if None in counts:
+        return None
+    return sum(counts) / n
 
 
 def idle_share(ctx, direction: str) -> float | None:
@@ -73,15 +78,28 @@ def copy_ms_per_call(ctx, direction: str) -> float | None:
         / n * 1e3
 
 
+def byte_rule(name: str, kernel: dict):
+    """``nbytes(header)`` of the kernel ``name``: ``rooflines/<name>.py``
+    where that file exists, else the coder rule of its direction
+    (``rooflines/coder_encode.py``, ``coder_decode.py``)."""
+    from .harness import HERE, load_module  # the harness imports this
+
+    if not (HERE / "rooflines" / f"{name}.py").is_file():
+        name = f"coder_{kernel['direction']}"
+    return load_module("rooflines", name).nbytes
+
+
 def roofline_share(ctx, kernel: str) -> float | None:
     """Percent of the kernel's device time that its algorithmic bytes
-    (``roofline``) would take at the card's published bandwidth."""
+    (its rule's, summed over the traced calls' containers) would take at
+    the card's published bandwidth."""
     k = ctx.kernels[kernel]
     peak = roofline.hbm_bytes_per_s(ctx.device_kind)
     if ctx.trace is None or peak is None:
         return None
     t = ctx.trace.device_s(lambda name: k["symbol"] in name)
-    nbytes = sum(roofline.BYTES[k["direction"]](c.header) for c in ctx.calls
+    rule = byte_rule(kernel, k)
+    nbytes = sum(rule(c.header) for c in ctx.calls
                  if c.ok and c.header is not None
                  and c.header.variant in k["variants"])
     if t <= 0 or nbytes == 0:

@@ -80,6 +80,7 @@ class Header:
     orig_len: int
     counts: np.ndarray    # int64 [n_blocks]: words, or bytes of a raw block
     raw: np.ndarray       # bool [n_blocks]
+    crc: bool             # the container holds each block's CRC-32
 
     def block_sizes(self) -> list[int]:
         """Padded symbols of each block."""
@@ -116,4 +117,5 @@ def read_header(blob) -> Header:
                                           np.uint8),
                             bitorder="little")[:n_blocks].astype(bool)
     return Header(VARIANT_NAMES[variant], prob_bits, 1 << log_n,
-                  block_symbols, orig_len, counts, raw)
+                  block_symbols, orig_len, counts, raw,
+                  bool(flags & FLAG_CRC))

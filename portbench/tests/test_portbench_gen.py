@@ -8,7 +8,7 @@ import torch
 from portbench import harness
 from portbench.gen import bf16_planes, text_zipf
 
-from ._cells import TINY_LAYER, tiny
+from ._cells import ROOT, tiny
 
 BIG_SEED = 2**31 + 977  # beyond 32 signed bits, as the benchmark's seeds
 
@@ -60,7 +60,7 @@ def test_layer_shapes_and_totals_match_the_published_config():
 
 
 def test_q_lora_layers_get_their_low_rank_pair():
-    cfg = dict(TINY_LAYER, q_lora_rank=24)
+    cfg = dict(bf16_planes.TINY_LAYER, q_lora_rank=24)
     names = dict(bf16_planes.layer_tensors(cfg))
     assert names["self_attn.q_a_proj"] == (24, 64)
     assert names["self_attn.q_b_proj"] == (2 * 24, 24)
@@ -82,3 +82,25 @@ def test_planes_are_deterministic_and_split_bf16(seed):
     assert abs(norm.mean().item() - 1.0) < 0.02
     hi_m = planes["self_attn.o_proj.hi"]
     assert hi_m.dtype == torch.uint8 and hi_m.is_contiguous()
+
+
+# the cuts the CPU tests have always used
+TEXT_CUT = dict(buffers=3, bytes=40000)
+LAYER_CUT = dict(hidden_size=64, num_attention_heads=2, qk_nope_head_dim=16,
+                 qk_rope_head_dim=8, v_head_dim=16, kv_lora_rank=32,
+                 n_routed_experts=2, moe_intermediate_size=48,
+                 n_shared_experts=2)
+
+
+@pytest.mark.parametrize("workload,gen,cut", [
+    ("text-zipf82-1e8.compress", text_zipf,
+     lambda c: dict(c, data=dict(c["data"], **TEXT_CUT))),
+    ("ckpt-dsv2lite-layer.save", bf16_planes, lambda c: dict(c, **LAYER_CUT))])
+def test_each_generator_cuts_its_own_configuration(workload, gen, cut):
+    """``tiny`` of each generator gives that cut, leaves the configuration
+    it is given as it was, and is the cut the tests' cells take."""
+    config = harness.load_cell(ROOT, workload).config
+    before = repr(config)
+    assert gen.tiny(config) == cut(config)
+    assert repr(config) == before
+    assert tiny(workload).config == cut(config)

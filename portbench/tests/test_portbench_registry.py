@@ -6,7 +6,8 @@ import re
 
 import pytest
 
-from portbench import harness
+from portbench import harness, readers
+from portbench.program import Program
 
 from ._cells import CELLS, ROOT
 
@@ -15,12 +16,23 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def test_cells_are_the_four_one_chip_cells():
-    assert [w["name"] for w in BENCH["workloads"]] == list(CELLS)
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
-    for w in BENCH["workloads"]:
+def test_cells_keep_the_rules():
+    """The cells are BENCHMARK.json's, whatever they are: unique names
+    ``<config>.<traffic>`` of a listed configuration, 1 or 4 chips with at
+    most a quarter of the cells (rounded down, one always) on 4, a ``why``
+    of 1-200 characters on one line, at most 24 cells."""
+    cells = BENCH["workloads"]
+    assert [w["name"] for w in cells] == list(CELLS)
+    assert 1 <= len(cells) <= 24
+    assert len(set(CELLS)) == len(CELLS)
+    configs = {c["name"] for c in BENCH["configs"]}
+    for w in cells:
+        assert NAME.match(w["name"])
         assert w["name"] == f"{w['config']}.{w['traffic']}"
-        assert 1 <= len(w["why"]) <= 200
+        assert w["config"] in configs
+        assert w["chips"] in (1, 4)
+        assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -55,11 +67,24 @@ def test_every_metric_has_a_reader_and_every_name_keeps_the_rules():
             assert m["name"][:-len("_roofline")] in harness.load_kernels()
 
 
+CODERS = ("word_encode", "word_decode", "byte_encode", "byte_decode",
+          "rans64_encode", "rans64_decode")
+
+
 def test_kernels_name_a_symbol_direction_and_counter():
+    """Every kernel file names its symbol, direction, variants and a
+    counter that the program in this tree keeps (a missing one reads None
+    only against an older program); a kernel of both directions brings
+    its own byte rule, and the six coders keep their meaning."""
     kernels = harness.load_kernels()
-    assert set(kernels) == {"word_encode", "word_decode", "byte_encode",
-                            "byte_decode", "rans64_encode", "rans64_decode"}
+    assert set(CODERS) <= set(kernels)
     for name, k in kernels.items():
+        assert k["symbol"] and k["variants"]
+        assert k["direction"] in ("encode", "decode", "both")
+        assert isinstance(Program.launches(k["counter"]), int), name
+        assert callable(readers.byte_rule(name, k))
+    for name in CODERS:
+        k = kernels[name]
         assert k["symbol"] == f"{name}_kernel"
         assert k["direction"] == name.split("_")[1]
         assert k["counter"].endswith(f":{k['direction']}_blocks")

@@ -8,8 +8,8 @@ intervals share.
 
 from __future__ import annotations
 
-import bisect
 import dataclasses
+import heapq
 from collections import defaultdict
 
 #: The span the harness puts around the traced passes.
@@ -70,34 +70,48 @@ class Trace:
         ops: dict[str, float] = defaultdict(float)
         for name, a, b in self.clipped(self.device):
             ops[name] += (b - a) / 1e6
-        spans = sorted(self.clipped(self.host), key=lambda e: e[1])
-        starts = [a for _, a, _ in spans]
-        gaps: dict[str, float] = defaultdict(float)
+        mids, lengths = [], []
         edge = self.window[0]
         for a, b in self.busy() + [(self.window[1], self.window[1])]:
             if a > edge:
-                gaps[self._host_at(spans, starts, (edge + a) / 2)] += \
-                    (a - edge) / 1e6
+                mids.append((edge + a) / 2)
+                lengths.append((a - edge) / 1e6)
             edge = max(edge, b)
+        gaps: dict[str, float] = defaultdict(float)
+        for name, length in zip(self._hosts_at(mids), lengths):
+            gaps[name] += length
 
         def top_of(d):
             return [[k, v] for k, v in sorted(d.items(),
                                               key=lambda kv: -kv[1])[:top]]
         return {"device_ops": top_of(ops), "idle_gaps": top_of(gaps)}
 
-    @staticmethod
-    def _host_at(spans, starts, t) -> str:
-        best = "harness"
-        i = bisect.bisect_right(starts, t)
-        # spans nest at most three deep (window, call, phase): look back a
-        # little for the innermost that holds t
-        for name, a, b in reversed(spans[max(0, i - 8):i]):
-            if a <= t <= b and name != WINDOW:
-                if name.startswith("rans."):
-                    return name
-                best = "call outside rans spans" if best == "harness" \
-                    else best
-        return best
+    def _hosts_at(self, times) -> list[str]:
+        """For each of the ascending ``times``, the innermost ``rans.*``
+        span that holds it (of those that do, the latest to start, then
+        the first to end), else ``call outside rans spans`` where another
+        span but the window holds it, else ``harness``.
+
+        One sweep over every span: each span enters a heap when a time
+        reaches its start and leaves once a time passes its end, since
+        the times only grow."""
+        spans = sorted(self.clipped(self.host), key=lambda e: e[1])
+        rans: list[tuple[float, float, str]] = []
+        other: list[tuple[float, float, str]] = []
+        out, i = [], 0
+        for t in times:
+            while i < len(spans) and spans[i][1] <= t:
+                name, a, b = spans[i]
+                i += 1
+                if name != WINDOW:
+                    heapq.heappush(rans if name.startswith("rans.")
+                                   else other, (-a, b, name))
+            for heap in (rans, other):
+                while heap and heap[0][1] < t:
+                    heapq.heappop(heap)
+            out.append(rans[0][2] if rans else
+                       "call outside rans spans" if other else "harness")
+        return out
 
 
 def from_profiler(events) -> Trace:
