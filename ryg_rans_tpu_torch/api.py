@@ -33,7 +33,10 @@ runs: with none, it costs one check (0.4-0.6 us on an H100 machine's
 A payload byte is copied once into a container and not at all out of one:
 ``utils.container.unpack`` hands out views of the blob, read-only for a
 ``bytes`` blob, and every path here concatenates them into a new array
-first, so none reaches PyTorch as a read-only array.
+first, so none reaches PyTorch as a read-only array.  A decoded byte is
+copied once on its way out: ``decompress`` and ``decompress_block`` make
+their ``bytes`` first (``utils.profiling.host_bytes``) and ``to_host``
+fills it, checked in place by the CRCs.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from .ops import byte, rans64, word
 from .ops import reference_numpy as oracle
 from .utils import container as cont
 from .utils.log import backend_choice, container_summary
-from .utils.profiling import span, to_device, to_host
+from .utils.profiling import host_bytes, span, to_device, to_host
 
 _CODECS = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
            Variant.RANS64: rans64}
@@ -375,11 +378,13 @@ def decompress(blob, device="cuda", backend: str | None = None) -> bytes:
     if c.orig_len == 0:
         return b""
     _log_route(c.cfg, be, device, dev)
-    out = to_host(_decode_container(c, dev, be))
-    with span("rans.crc"):
-        _check_crcs(c, 0, len(c.block_sizes()), out)
+    dec = _decode_container(c, dev, be)
     with span("rans.output"):
-        return out.tobytes()
+        out, view = host_bytes(c.orig_len)
+    to_host(dec, out=view)
+    with span("rans.crc"):
+        _check_crcs(c, 0, len(c.block_sizes()), view)
+    return out
 
 
 def decompress_to_device(blob, device="cuda") -> torch.Tensor:
@@ -421,12 +426,14 @@ def decompress_block(blob, block: int, device="cuda",
     off = block * cfg.block_symbols
     # a block of padding only (off past orig_len) holds no input bytes
     end = max(min(off + sizes[block], c.orig_len), off)
-    out = to_host(_decode_payloads(
+    dec = _decode_payloads(
         cfg, c.payloads[block:block + 1], sizes[block:block + 1], c.freqs,
         stats.calc_cum_freqs(c.freqs),
         None if c.raw is None else c.raw[block:block + 1], dev,
-        be))[:end - off]
-    with span("rans.crc"):
-        _check_crcs(c, block, 1, out)
+        be)[:end - off]
     with span("rans.output"):
-        return out.tobytes()
+        out, view = host_bytes(end - off)
+    to_host(dec, out=view)
+    with span("rans.crc"):
+        _check_crcs(c, block, 1, view)
+    return out

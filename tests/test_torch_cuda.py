@@ -806,3 +806,158 @@ def test_every_sync_is_a_marked_drain(dev, variant, traced):
         assert cd == rt.compress(x, cfg_dev)
         assert torch.equal(dd.cpu(), torch.from_numpy(x))
         assert db == x[:cfg.block_symbols].tobytes()
+
+
+# --- to_host's pinned staging ----------------------------------------------
+
+def _staging():
+    from ryg_rans_tpu_torch.utils import profiling
+    return profiling
+
+
+def _counting_stage(monkeypatch):
+    """Count the staged fetches ``to_host`` makes from here on."""
+    profiling = _staging()
+    stage, n = profiling._stage, []
+
+    def counted(*args):
+        n.append(1)
+        return stage(*args)
+    monkeypatch.setattr(profiling, "_stage", counted)
+    return n
+
+
+def _staging_sizes():
+    """The edges of the plain path and of the chunks, at the start of the
+    staged range and beyond it."""
+    p = _staging()
+    C, S = p.CHUNK, p.STAGE_MIN
+    return sorted({0, 1, S - 1, S, C - 1, C, C + 1, 5 * C // 2, S + C - 1,
+                   S + C, S + C + 1, S + 5 * C // 2, 10**8})
+
+
+@pytest.mark.parametrize("with_out", [False, True], ids=["new", "out"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int64],
+                         ids=str)
+@pytest.mark.parametrize("nbytes", _staging_sizes())
+def test_staged_to_host_matches_cpu_numpy(dev, monkeypatch, nbytes, dtype,
+                                          with_out):
+    p = _staging()
+    staged = _counting_stage(monkeypatch)
+    size = torch.empty(0, dtype=dtype).element_size()
+    t = torch.randint(0, 256, (nbytes - nbytes % size,), dtype=torch.uint8,
+                      device=dev).view(dtype)
+    n = t.numel()
+    want = t.cpu().numpy()
+    out = np.full(t.numel() * t.element_size(), 0xCD, np.uint8) \
+        if with_out else None
+    got = p.to_host(t, out=out)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+    if with_out:
+        assert out.tobytes() == want.tobytes()
+    assert len(staged) == (n * t.element_size() >= p.STAGE_MIN)
+
+
+@pytest.mark.parametrize("with_out", [False, True], ids=["new", "out"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int64],
+                         ids=str)
+def test_staged_to_host_of_an_offset_slice_and_a_strided_view(
+        dev, monkeypatch, dtype, with_out):
+    p = _staging()
+    staged = _counting_stage(monkeypatch)
+    size = torch.empty(0, dtype=dtype).element_size()
+    n = (p.STAGE_MIN + 3 * p.CHUNK + 4099) // size
+    base = torch.randint(0, 256, ((n + 1000) * size,), dtype=torch.uint8,
+                         device=dev).view(dtype)
+    sliced = base[777:777 + n]  # contiguous at an offset: staged
+    strided = base[:n - n % 64].view(-1, 64)[:, ::2]  # plain path
+    for t, stages in ((sliced, 1), (strided, 0)):
+        want = t.cpu().numpy()
+        out = np.empty(t.numel() * size, np.uint8) if with_out else None
+        before = len(staged)
+        got = p.to_host(t, out=out)
+        assert got.shape == want.shape and np.array_equal(got, want)
+        if with_out:
+            assert out.tobytes() == want.tobytes()
+        assert len(staged) - before == stages
+
+
+def _straddling_sizes():
+    """Either side of a chunk's and a block's (2^23) edge, plain and
+    staged."""
+    C, S, B = _staging().CHUNK, _staging().STAGE_MIN, 1 << 23
+    return [B - 1, B + 1, S + C - 1, S + C + 1, S + 2 * B,
+            S + 3 * C + 12_345]
+
+
+@pytest.mark.parametrize("checksum", [True, False], ids=["crc", "nocrc"])
+@pytest.mark.parametrize("size", _straddling_sizes())
+def test_decompress_returns_bytes_across_chunk_and_block_edges(dev, size,
+                                                               checksum):
+    data = skewed(size, seed=size % 1009)
+    cfg = dataclasses.replace(rt.RansConfig.auto(size), checksum=checksum)
+    blob = rt.compress(data, cfg)
+    out = rt.decompress(blob)
+    assert type(out) is bytes and out == data.tobytes()
+    B = cfg.block_symbols
+    last = -(-size // B) - 1
+    for b in {0, last}:
+        blk = rt.decompress_block(blob, b)
+        assert type(blk) is bytes and blk == data[b * B:(b + 1) * B].tobytes()
+
+
+def test_staged_decompress_still_fails_a_flipped_payload_byte(dev):
+    from ryg_rans_tpu_torch.utils import container as tcont
+
+    size = _staging().STAGE_MIN + _staging().CHUNK + 999
+    cfg = rt.RansConfig.auto(size)
+    blob = rt.compress(skewed(size, seed=12), cfg)
+    c = tcont.unpack(blob)
+    bad = bytearray(blob)
+    start = len(blob) - sum(s.nbytes for blk in c.payloads for s in blk)
+    bad[start + 4 * cfg.n_lanes + 100] ^= 0x10  # an early body word
+    with pytest.raises(ValueError, match="crc mismatch in block 0"):
+        rt.decompress(bytes(bad))
+
+
+def test_two_threads_decode_through_one_ring(dev):
+    import threading
+
+    size = _staging().STAGE_MIN + _staging().CHUNK // 2 + 17
+    datas = [skewed(size, seed=21), skewed(size + 4096, seed=22)]
+    blobs = [rt.compress(x) for x in datas]
+    results = [[], []]
+    go = threading.Barrier(2)
+
+    def work(i):
+        go.wait(timeout=60)
+        for _ in range(6):
+            results[i].append(rt.decompress(blobs[i]))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive()
+    for x, got in zip(datas, results):
+        assert len(got) == 6 and all(g == x.tobytes() for g in got)
+
+
+@pytest.mark.parametrize("size,pinned", [(10**8, 1), (1024, 0)])
+def test_decompress_records_one_pinned_span_per_large_fetch(dev, size,
+                                                            pinned):
+    from torch.profiler import ProfilerActivity, profile
+
+    data = skewed(size, seed=31)
+    blob = rt.compress(data)
+    rt.decompress(blob)  # the ring is made outside the profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = rt.decompress(blob)
+    assert out == data.tobytes()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert names.count("rans.pinned") == pinned
+    assert names.count("rans.fetch") == 1

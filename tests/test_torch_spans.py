@@ -152,6 +152,21 @@ def test_copy_helpers_batch_their_copies_under_one_wait():
     assert isinstance(one, np.ndarray) and len(spans) == 2
 
 
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_no_cpu_call_stages_through_the_pinned_ring(entry):
+    """``rans.pinned`` is a span of the package, and only a CUDA tensor's
+    fetch records it: no call on the CPU does."""
+    assert "rans.pinned" in profiling.SPANS
+    data, cfg = _data("raw"), _cfg(rt.Variant.WORD)
+    blob = rt.compress(data, cfg, device="cpu")
+    fn, want = _call(entry, data, cfg, blob)
+    out, spans = _spans(fn)
+    assert out == want
+    names = [n for _, _, n in spans]
+    assert ("rans.fetch" in names) == (entry != "decompress_to_device")
+    assert "rans.pinned" not in names
+
+
 def test_span_is_a_shared_no_op_without_a_profiler():
     assert profiling.span("rans.encode") is profiling.span("rans.decode")
     with profile(activities=[ProfilerActivity.CPU]):
