@@ -219,13 +219,17 @@ def check_host_backends(rt, RansConfig, Variant, paths, data_main) -> None:
               f"naming the host backends", flush=True)
 
 
-def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
-    """Phase 2: each kernel against its plain version, launch group by
-    launch group as the main path cuts the input, at five shapes."""
-    import torch
+def kernel_stem(cfg) -> str:
+    """The stem of ``cfg.variant``'s kernel names (``word``, ``byte`` or
+    ``rans64``): the module of its wrappers in ``ops.codec``'s record."""
+    from ryg_rans_tpu_torch.ops import codec
 
-    dev = torch.device("cuda")
-    cases = [
+    return codec.CODECS[cfg.variant].ops.__name__.rsplit(".", 1)[1]
+
+
+def word_cases(RansConfig, data_main):
+    """Phase-2 shapes of the WORD kernels."""
+    return [
         ("main path", RansConfig.auto(MAIN_LEN), data_main),
         ("pb15 random full width",
          RansConfig(prob_bits=15, n_lanes=16384, block_symbols=1 << 23),
@@ -240,105 +244,6 @@ def check_kernels(rt_word, stats, host_prep, RansConfig, data_main):
          RansConfig(prob_bits=15, n_lanes=16384, block_symbols=1 << 23),
          dominant_full_width()),
     ]
-    worst = {"word_encode": 0, "word_decode": 0}
-    for label, cfg, data in cases:
-        N, pb = cfg.n_lanes, cfg.prob_bits
-        freqs, cum = stats.build_model(data, pb)
-        f, st = (torch.from_numpy(a).to(dev)
-                 for a in host_prep.enc_tables(freqs, cum))
-        table = torch.from_numpy(host_prep.word_enc_table(freqs, cum,
-                                                          pb)).to(dev)
-        c2s, fd, cd = (torch.from_numpy(a).to(dev)
-                       for a in host_prep.dec_tables(freqs, cum, pb))
-        padded = rt_word.pad_block(torch.from_numpy(data).to(dev), N, freqs)
-        sizes = rt_word.block_sizes(cfg.block_symbols, padded.numel())
-        shapes, e_enc, e_dec, pos, x_top = [], 0, 0, 0, 0
-        for _, nb, size in rt_word.groups(sizes):
-            syms = padded[pos:pos + nb * size].view(nb, size)
-            pos += nb * size
-            shapes.append(f"{nb}x{size}")
-            cells, states = rt_word.encode_blocks(syms, f, st, N, pb, table)
-            cells_r, states_r = rt_word.encode_blocks_ref(syms, f, st, N, pb)
-            torch.cuda.synchronize()
-            e_enc = max(e_enc, max_abs_err(cells, cells_r),
-                        max_abs_err(states, states_r))
-            x_top = max(x_top, int((states.to(torch.int64)
-                                    & 0xFFFFFFFF).max()))
-            del cells, cells_r
-
-            blocks = rt_word.encode(cfg, syms.view(-1), freqs, cum)
-            stream = rt_word.prep_decode(blocks, N, dev)
-            out = rt_word.decode_blocks(*stream, c2s, fd, cd, size, pb)
-            out_r = rt_word.decode_blocks_ref(*stream, c2s, fd, cd, size, pb)
-            torch.cuda.synchronize()
-            e_dec = max(e_dec, max_abs_err(out, out_r),
-                        max_abs_err(out, syms))
-        print(f"kernel check {label}: n_lanes={N} prob_bits={pb} "
-              f"max freq {int(np.max(freqs))} launch groups (blocks x "
-              f"symbols) {shapes} encode max_abs_err={e_enc} decode "
-              f"max_abs_err={e_dec} (tolerance 0: exact); largest final "
-              f"encoder state {x_top}", flush=True)
-        if e_enc or e_dec:
-            raise AssertionError(f"kernel disagrees with its plain version "
-                                 f"({label})")
-        if "dominant" in label and (int(np.max(freqs)) != (1 << 15) - 3
-                                    or x_top < 1 << 31):
-            raise AssertionError("the dominant-symbol case does not reach "
-                                 "states past 2^31 at freq 2^15 - 3")
-        worst["word_encode"] = max(worst["word_encode"], e_enc)
-        worst["word_decode"] = max(worst["word_decode"], e_dec)
-    return worst
-
-
-class Codec:
-    """Uniform calls into ops.byte (BYTE, ALIAS) or ops.rans64 (RANS64)."""
-
-    def __init__(self, ops, host_prep, cfg, freqs, cum, dev):
-        import torch
-
-        self.variant = cfg.variant.name
-        self.mod = ops.rans64 if self.variant == "RANS64" else ops.byte
-        self.N, self.pb = cfg.n_lanes, cfg.prob_bits
-        f, st = (torch.from_numpy(a).to(dev)
-                 for a in host_prep.enc_tables(freqs, cum))
-        if self.variant == "RANS64":
-            self.enc_tabs = (f, st)
-            self.enc_kw = {"table": torch.from_numpy(
-                host_prep.rans64_enc_table(freqs, cum, self.pb)).to(dev)}
-            self.head_units = 2 * self.N  # u32 words
-        else:
-            remap = (torch.from_numpy(host_prep.alias_remap(
-                freqs, cum, self.pb)).to(dev)
-                if self.variant == "ALIAS" else None)
-            self.enc_tabs = (f, st, remap)
-            self.enc_kw = {"table": torch.from_numpy(host_prep.byte_enc_table(
-                freqs, cum, self.pb, self.variant == "ALIAS")).to(dev)}
-            self.head_units = 4 * self.N  # bytes
-        self.dec_tabs = self.mod.dec_tables(cfg, freqs, cum, dev)
-
-    def encode(self, syms, ref=False):
-        if ref:
-            return self.mod.encode_blocks_ref(syms, *self.enc_tabs, self.N,
-                                              self.pb)
-        return self.mod.encode_blocks(syms, *self.enc_tabs, self.N, self.pb,
-                                      **self.enc_kw)
-
-    def decode(self, stream, size, ref=False, plan=None):
-        if ref:
-            fn = self.mod.decode_blocks_ref
-        else:
-            def fn(*args):
-                return self.mod.decode_blocks(*args, plan=plan)
-        if self.variant == "RANS64":
-            return fn(*stream, *self.dec_tabs, size, self.pb)
-        return fn(*stream, self.dec_tabs, size, self.pb,
-                  self.variant == "ALIAS")
-
-    def emitted(self, cells) -> int:
-        """Renorm units (bytes or words) the dense cells hold."""
-        if self.variant == "RANS64":
-            return int((cells != 0).sum())
-        return int(((cells >> 16) & 3).sum())
 
 
 def new_cases(RansConfig, Variant, data_main):
@@ -376,53 +281,68 @@ def new_cases(RansConfig, Variant, data_main):
     ]
 
 
-def check_new_kernels(ops, stats, host_prep, cases):
-    """Phase 2 for K3-K6: each kernel against its plain version, launch
-    group by launch group as the entry points cut the input."""
+def check_kernels(codec, stats, host_prep, cases):
+    """Phase 2: each kernel against its plain version, launch group by
+    launch group as the entry points cut the input, through the variant's
+    record in ``ops.codec``."""
     import torch
 
     dev = torch.device("cuda")
-    worst = dict.fromkeys(["byte_encode", "byte_decode", "rans64_encode",
-                           "rans64_decode"], 0)
+    worst = dict.fromkeys(["word_encode", "word_decode", "byte_encode",
+                           "byte_decode", "rans64_encode", "rans64_decode"],
+                          0)
     for label, cfg, data in cases:
-        freqs, cum = stats.build_model(data, cfg.prob_bits)
-        c = Codec(ops, host_prep, cfg, freqs, cum, dev)
+        N, pb = cfg.n_lanes, cfg.prob_bits
+        rec = codec.codec_of(cfg)
+        freqs, cum = stats.build_model(data, pb)
+        enc = rec.enc_tables(freqs, cum, pb, dev)
+        dec = rec.dec_tables(freqs, cum, pb, dev)
         note = ""
         if label.startswith("ALIAS pb16 wrapped"):
             adj = host_prep.alias_dec_tables(freqs, cum, 16)[3]
             if not (adj.min() < 0 or adj.max() >= 1 << 16):
                 raise AssertionError("the wrapped-adjust model does not wrap")
             note = f" slot adjust range [{adj.min()}, {adj.max()}]"
-        padded = ops.word.pad_block(torch.from_numpy(data).to(dev), c.N,
-                                    freqs)
-        sizes = ops.word.block_sizes(cfg.block_symbols, padded.numel())
-        shapes, e_enc, e_dec, pos = [], 0, 0, 0
-        for _, nb, size in ops.word.groups(sizes, c.mod.GROUP_SYMBOLS):
+        padded = codec.pad_block(torch.from_numpy(data).to(dev), N, freqs)
+        sizes = codec.block_sizes(cfg.block_symbols, padded.numel())
+        shapes, e_enc, e_dec, pos, x_top = [], 0, 0, 0, 0
+        for _, nb, size in codec.groups(sizes, rec.group_symbols):
             syms = padded[pos:pos + nb * size].view(nb, size)
             pos += nb * size
             shapes.append(f"{nb}x{size}")
-            cells, states = c.encode(syms)
-            cells_r, states_r = c.encode(syms, ref=True)
+            cells, states = rec.encode_blocks(syms, enc, cfg)
+            cells_r, states_r = rec.ops.encode_blocks_ref(syms, *enc[:-1],
+                                                          N, pb)
             torch.cuda.synchronize()
             e_enc = max(e_enc, max_abs_err(cells, cells_r),
                         max_abs_err(states, states_r))
+            # u32 states travel as int32 bits; RANS64's stay below 2^63
+            x = states.to(torch.int64)
+            x_top = max(x_top, int(torch.where(x < 0, x + (1 << 32),
+                                               x).max()))
             del cells, cells_r
 
-            blocks = c.mod.encode(cfg, syms.view(-1), freqs, cum)
-            stream = c.mod.prep_decode(blocks, c.N, dev)
-            out = c.decode(stream, size)
-            out_r = c.decode(stream, size, ref=True)
+            stream = rec.prep_decode(codec.encode(cfg, syms.view(-1), freqs,
+                                                  cum), N, dev)
+            args = rec.decode_args(dec, size, pb)
+            out = rec.ops.decode_blocks(*stream, *args)
+            out_r = rec.ops.decode_blocks_ref(*stream, *args)
             torch.cuda.synchronize()
             e_dec = max(e_dec, max_abs_err(out, out_r),
                         max_abs_err(out, syms))
-        print(f"kernel check {label}: {cfg.variant.name} n_lanes={c.N} "
-              f"prob_bits={c.pb} launch groups (blocks x symbols) {shapes} "
-              f"encode max_abs_err={e_enc} decode max_abs_err={e_dec} "
-              f"(tolerance 0: exact){note}", flush=True)
+        print(f"kernel check {label}: {cfg.variant.name} n_lanes={N} "
+              f"prob_bits={pb} max freq {int(np.max(freqs))} launch groups "
+              f"(blocks x symbols) {shapes} encode max_abs_err={e_enc} "
+              f"decode max_abs_err={e_dec} (tolerance 0: exact); largest "
+              f"final encoder state {x_top}{note}", flush=True)
         if e_enc or e_dec:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"({label})")
-        stem = "rans64" if cfg.variant.name == "RANS64" else "byte"
+        if "dominant" in label and (int(np.max(freqs)) != (1 << 15) - 3
+                                    or x_top < 1 << 31):
+            raise AssertionError("the dominant-symbol case does not reach "
+                                 "states past 2^31 at freq 2^15 - 3")
+        stem = kernel_stem(cfg)
         worst[f"{stem}_encode"] = max(worst[f"{stem}_encode"], e_enc)
         worst[f"{stem}_decode"] = max(worst[f"{stem}_decode"], e_dec)
     return worst
@@ -460,58 +380,63 @@ def plan_report(variant, mod, N, pb, nb, B, decode, stream, stream1,
           + "; ".join(sweep), flush=True)
 
 
-def time_new_kernels(ops, stats, host_prep, cfg, data, data_dev) -> dict:
-    """Phase 4 for K3-K6: encode and decode kernel on the full-block launch
-    group of ``cfg``'s path, their plain versions, and their bounds; the
-    decoder's launch plan and its times at every cluster size it allows."""
+#: Operations a symbol of a decoder beyond the 7 all of them take, by
+#: variant: ALIAS's bucket half (a shift, a compare and an add).
+DECODE_EXTRA_OPS = {"ALIAS": 3}
+
+
+def nbytes(tables) -> int:
+    return sum(t.numel() * t.element_size() for t in tables if t is not None)
+
+
+def time_kernels(codec, stats, cfg, data, data_dev) -> dict:
+    """Phase 4: encode and decode kernel on the full-block launch group of
+    ``cfg``'s path, their plain versions, and their bounds; the decoder's
+    launch plan and its times at every cluster size it allows."""
     N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
     nb = data.size // B
     S = nb * B
+    rec = codec.codec_of(cfg)
     freqs, cum = stats.build_model(data, pb)
-    c = Codec(ops, host_prep, cfg, freqs, cum, "cuda")
-    syms = ops.word.pad_block(data_dev, N, freqs)[:S].view(nb, B)
-    enc_ms = cuda_ms(lambda: c.encode(syms), 20)
-    enc_plain_ms = cuda_ms(lambda: c.encode(syms, ref=True), 1)
-    cells, _ = c.encode(syms)
-    emitted = c.emitted(cells)
-    del cells
-    blocks = c.mod.encode(cfg, syms.view(-1), freqs, cum)
-    stream = c.mod.prep_decode(blocks, N, "cuda")
-    dec_ms = cuda_ms(lambda: c.decode(stream, B), 20)
-    dec_plain_ms = cuda_ms(lambda: c.decode(stream, B, ref=True), 1)
+    enc = rec.enc_tables(freqs, cum, pb, "cuda")
+    dec = rec.dec_tables(freqs, cum, pb, "cuda")
+    syms = codec.pad_block(data_dev, N, freqs)[:S].view(nb, B)
+    enc_ms = cuda_ms(lambda: rec.encode_blocks(syms, enc, cfg), 20)
+    enc_plain_ms = cuda_ms(
+        lambda: rec.ops.encode_blocks_ref(syms, *enc[:-1], N, pb), 1)
+    emitted = int(rec.compact(*rec.encode_blocks(syms, enc, cfg))[2].sum())
+    blocks = codec.encode(cfg, syms.view(-1), freqs, cum)
+    stream = rec.prep_decode(blocks, N, "cuda")
+    args = rec.decode_args(dec, B, pb)
+    dec_ms = cuda_ms(lambda: rec.ops.decode_blocks(*stream, *args), 20)
+    dec_plain_ms = cuda_ms(lambda: rec.ops.decode_blocks_ref(*stream, *args),
+                           1)
     # one block alone against nb blocks: equal times mean the time is one
     # block's chain of steps, not the card's throughput
-    stream1 = c.mod.prep_decode(blocks[:1], N, "cuda")
-    dec1_ms = cuda_ms(lambda: c.decode(stream1, B), 20)
-    plan_report(c.variant, c.mod, N, pb, nb, B,
-                lambda s, p: c.decode(s, B, plan=p), stream, stream1, dec_ms,
-                dec1_ms)
+    stream1 = rec.prep_decode(blocks[:1], N, "cuda")
+    dec1_ms = cuda_ms(lambda: rec.ops.decode_blocks(*stream1, *args), 20)
+    name = cfg.variant.name
+    plan_report(name, rec.ops, N, pb, nb, B,
+                lambda s, p: rec.ops.decode_blocks(*s, *args, plan=p),
+                stream, stream1, dec_ms, dec1_ms)
     units = sum(int(b.size) for b in blocks)
-    M = 1 << pb
-    # bytes: symbols in, dense cells and states out, tables in (decode:
-    # the stream in, symbols out, tables in).  ops: per symbol, encode
+    # bytes: symbols in, dense cells and states out, the tables the kernel
+    # reads in (not the plain versions' freq and start); decode: the
+    # stream in, symbols out, tables in.  ops: per symbol, encode
     # compares, selects, multiplies high, shifts, multiplies and adds twice
-    # (7), decode
-    # masks, shifts, multiplies, adds, subtracts and compares (7; ALIAS
-    # adds a shift, a compare and an add for the bucket half, RANS64 above
-    # prob_bits 16 an 8-step search of a compare and an add each); 2 per
+    # (7), decode masks, shifts, multiplies, adds, subtracts and compares
+    # (7, and DECODE_EXTRA_OPS; RANS64 above prob_bits 16, which has no
+    # cum2sym, an 8-step search of a compare and an add each); 2 per
     # renorm unit (mask or shift, shift or or)
-    if c.variant == "RANS64":
-        wb, cell_b, state_b = 4, 8, 8
-        enc_tab = 256 * 32
-        dec_tab = (256 + 257) * 4 + (M if pb <= 16 else 0)
-        dec_ops = 7 + (16 if pb > 16 else 0)
-    else:
-        wb, cell_b, state_b = 1, 4, 4
-        enc_tab = 256 * 16 + (2 * M if c.variant == "ALIAS" else 0)
-        dec_tab = ((256 + 3 * 512) * 4 if c.variant == "ALIAS"
-                   else M + 2 * 256 * 4)
-        dec_ops = 10 if c.variant == "ALIAS" else 7
-    enc_bound = bound_ms(S * (1 + cell_b) + nb * N * state_b + enc_tab,
-                         7 * S + 2 * emitted)
-    renorms = units - nb * c.head_units
-    dec_bound = bound_ms(S + wb * units + dec_tab, dec_ops * S + 2 * renorms)
-    print(f"{c.variant} prob_bits {pb}: encode kernel {enc_ms:.4f} ms "
+    dec_ops = 7 + DECODE_EXTRA_OPS.get(name, 0) + (16 if dec[0] is None
+                                                    else 0)
+    enc_bound = bound_ms(S * (1 + rec.cell_bytes)
+                         + nb * N * rec.state_dtype.itemsize
+                         + nbytes(enc[2:]), 7 * S + 2 * emitted)
+    renorms = units - nb * N * rec.head_words
+    dec_bound = bound_ms(S + np.dtype(rec.word_dtype).itemsize * units
+                         + nbytes(dec), dec_ops * S + 2 * renorms)
+    print(f"{name} prob_bits {pb}: encode kernel {enc_ms:.4f} ms "
           f"({S / enc_ms / 1e6:.3f} GB/s, {enc_ms * 1e6 / (B // N):.1f} ns "
           f"a step), plain {enc_plain_ms:.2f} ms, "
           f"bound {enc_bound[0]:.4f} ms ({enc_bound[1]}); decode kernel "
@@ -572,8 +497,7 @@ def check_file_path(rt, stream_io, counters, paths, tmp: Path) -> dict:
         step = 4 * c.n_lanes
         n_blocks = -(-(-(-data.size // step) * step) // c.block_symbols)
         batches = -(-n_blocks // FILE_BATCH)
-        stem = {"WORD": "word", "RANS64": "rans64"}.get(c.variant.name,
-                                                       "byte")
+        stem = kernel_stem(c)
         launches, peaks = {}, {}
         for call, fn in [
                 ("compress_file", lambda: stream_io.compress_file(
@@ -673,7 +597,7 @@ def rank_main(rank: int, world: int, store: str, tmp: str) -> None:
 
     from ryg_rans_tpu_torch.config import RansConfig, Variant
     from ryg_rans_tpu_torch.models import stats
-    from ryg_rans_tpu_torch.ops import byte, rans64, word
+    from ryg_rans_tpu_torch.ops import byte, codec, rans64, word
     from ryg_rans_tpu_torch.parallel import mesh as pmesh
     from ryg_rans_tpu_torch.parallel import multihost
     from ryg_rans_tpu_torch.utils import container as cont
@@ -699,8 +623,8 @@ def rank_main(rank: int, world: int, store: str, tmp: str) -> None:
                     "rans64_decode": rans64.decode_blocks}
         for k in counters.values():
             k.launches = 0
-        padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes,
-                                freqs).numpy()
+        padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes,
+                                 freqs).numpy()
         payloads = multihost.compress_multihost(padded, cfg, freqs, cum)
         c = cont.unpack(blob)
         if c.raw is not None or len(payloads) != len(c.payloads) or not all(
@@ -714,18 +638,19 @@ def rank_main(rank: int, world: int, store: str, tmp: str) -> None:
             raise AssertionError(f"rank {rank}: decompress_multihost")
         lo, hi = multihost.local_block_range(len(payloads))
         mh = {k: f.launches for k, f in counters.items()}
-        for v in Variant:
-            n = MAIN_LEN if v == Variant.WORD else NEW_LEN
-            vcfg = RansConfig.auto(n) if v == Variant.WORD else \
-                RansConfig.auto(n, v)
+        paths = [(MAIN_LEN, RansConfig.auto(MAIN_LEN))] + [
+            (NEW_LEN, RansConfig.auto(NEW_LEN, v))
+            for v in (Variant.BYTE, Variant.ALIAS, Variant.RANS64)]
+        for n, vcfg in paths:
             vf, vc = pmesh.build_model_sharded(mesh, data[:n],
                                                vcfg.prob_bits)
-            vpad = word.pad_block(torch.from_numpy(data[:n]), vcfg.n_lanes,
-                                  vf).numpy()
+            vpad = codec.pad_block(torch.from_numpy(data[:n]),
+                                   vcfg.n_lanes, vf).numpy()
             dec, _ = pmesh.roundtrip_step(mesh, vcfg, vpad, vf, vc)
             if not np.array_equal(dec.cpu().numpy(),
                                   pmesh.local_slice(mesh, vcfg, vpad)):
-                raise AssertionError(f"rank {rank}: roundtrip_step {v.name}")
+                raise AssertionError(f"rank {rank}: roundtrip_step "
+                                     f"{vcfg.variant.name}")
         torch.cuda.synchronize()
         result = {"rank": rank, "blocks": [lo, hi], "multihost": mh,
                   "all": {k: f.launches for k, f in counters.items()},
@@ -883,15 +808,14 @@ def main(argv=None) -> int:
         return 1
 
     import ryg_rans_tpu_torch as rt
-    from ryg_rans_tpu_torch import _kernels, native, ops
+    from ryg_rans_tpu_torch import _kernels, native
     from ryg_rans_tpu_torch.config import RansConfig
     from ryg_rans_tpu_torch.models import stats
     from ryg_rans_tpu_torch.config import Variant
-    from ryg_rans_tpu_torch.ops import byte, host_prep, rans64
+    from ryg_rans_tpu_torch.ops import byte, codec, host_prep, rans64
     from ryg_rans_tpu_torch.ops import coder
     from ryg_rans_tpu_torch.ops import reference_numpy as oracle
     from ryg_rans_tpu_torch.ops import word as rt_word
-    from ryg_rans_tpu_torch.utils import container as cont
     from ryg_rans_tpu_torch.utils import stream_io
 
     here = Path(__file__).resolve().parent
@@ -933,9 +857,9 @@ def main(argv=None) -> int:
     data = skewed(rng, MAIN_LEN)
 
     # -- phase 2: kernels against their plain versions ------------------------
-    worst = check_kernels(rt_word, stats, host_prep, RansConfig, data)
-    worst.update(check_new_kernels(ops, stats, host_prep,
-                                   new_cases(RansConfig, Variant, data)))
+    worst = check_kernels(codec, stats, host_prep,
+                          word_cases(RansConfig, data)
+                          + new_cases(RansConfig, Variant, data))
 
     # -- phase 3: the main path through the user entry points ----------------
     cfg = RansConfig.auto(data.size)
@@ -1010,7 +934,7 @@ def main(argv=None) -> int:
         vblock = rt.decompress_block(vblob, 1)
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in counters.items()}
-        stem = "rans64" if name == "RANS64" else "byte"
+        stem = kernel_stem(vcfg)
         print(f"{name} path: cfg={vcfg} launches={counts}", flush=True)
         if vrestored != data_new.tobytes():
             raise AssertionError(f"{name}: decompress(compress(data)) != data")
@@ -1117,93 +1041,24 @@ def main(argv=None) -> int:
           f"({blk.size / dec1 / 1e9:.4f} GB/s) [5 calls; {host}]",
           flush=True)
 
-    # kernels at the main path's full-block group: 8 blocks of 2^23
-    N, pb, B = cfg.n_lanes, cfg.prob_bits, cfg.block_symbols
-    nb = data.size // B
-    freqs, cum = stats.build_model(data, pb)
-    padded = rt_word.pad_block(data_dev, N, freqs)
-    syms = padded[:nb * B].view(nb, B)
-    f, st = (torch.from_numpy(a).cuda()
-             for a in host_prep.enc_tables(freqs, cum))
-    table = torch.from_numpy(host_prep.word_enc_table(freqs, cum, pb)).cuda()
-    enc_ms = cuda_ms(lambda: rt_word.encode_blocks(syms, f, st, N, pb, table),
-                     20)
-    enc_plain_ms = cuda_ms(
-        lambda: rt_word.encode_blocks_ref(syms, f, st, N, pb), 1)
-    cells, _ = rt_word.encode_blocks(syms, f, st, N, pb, table)
-    emitted = int((cells >= 0x10000).sum())
-    del cells
-    S = nb * B
-    # bytes: symbols in, 4-byte cells and the states out, the table in;
-    # ops: 7 per symbol, as time_new_kernels counts K4 and K6 (compare, two
-    # selects, multiply high, multiply, two adds), and a mask and a shift
-    # per emitted word
-    enc_bound = bound_ms(S * (1 + 4) + nb * N * 4 + 256 * 16,
-                         7 * S + 2 * emitted)
+    # K1/K2 on the main path's full-block group (8 blocks of 2^23), K3/K4
+    # on the BYTE and the ALIAS path, K5/K6 on the RANS64 path (the kernels
+    # line gives BYTE and RANS64 prob_bits 14), and RANS64 at prob_bits 31,
+    # where the decoder searches instead of a table lookup
+    times = {"WORD": time_kernels(codec, stats, cfg, data, data_dev)}
+    for name, (vcfg, *_) in new_paths.items():
+        times[name] = time_kernels(codec, stats, vcfg, data_new,
+                                   data_new_dev)
+    time_kernels(codec, stats,
+                 dataclasses.replace(new_paths["RANS64"][0], prob_bits=31),
+                 data_new, data_new_dev)
 
-    c = cont.unpack(blob)
-    blocks = [c.payloads[i][0] for i in range(nb)]
-    stream = rt_word.prep_decode(blocks, N, "cuda")
-    c2s, fd, cd = (torch.from_numpy(a).cuda()
-                   for a in host_prep.dec_tables(c.freqs, cum, pb))
-    dec_ms = cuda_ms(lambda: rt_word.decode_blocks(*stream, c2s, fd, cd, B,
-                                                   pb), 20)
-    dec_plain_ms = cuda_ms(lambda: rt_word.decode_blocks_ref(
-        *stream, c2s, fd, cd, B, pb), 1)
-    # one block against nb blocks: equal times mean the time is one block's
-    # chain of dependent steps, not the card's throughput
-    stream1 = rt_word.prep_decode(blocks[:1], N, "cuda")
-    dec1_ms = cuda_ms(lambda: rt_word.decode_blocks(*stream1, c2s, fd, cd,
-                                                    B, pb), 20)
-    plan_report("WORD", rt_word, N, pb, nb, B,
-                lambda s, p: rt_word.decode_blocks(*s, c2s, fd, cd, B, pb,
-                                                   plan=p),
-                stream, stream1, dec_ms, dec1_ms)
-    n_words = sum(int(b.size) for b in blocks)
-    renorms = n_words - nb * 2 * N
-    # bytes: the words in, symbols out, tables in; ops: mask, shift,
-    # multiply, add, subtract and compare per symbol, and a shift and an
-    # or per refill
-    dec_bound = bound_ms(S + 2 * n_words + (1 << pb) + 2 * 256 * 4,
-                         6 * S + 2 * renorms)
-    print(f"encode kernel {enc_ms:.4f} ms ({S / enc_ms / 1e6:.3f} GB/s, "
-          f"{enc_ms * 1e6 / (B // N):.1f} ns a step), "
-          f"plain {enc_plain_ms:.2f} ms, bound {enc_bound[0]:.4f} ms "
-          f"({enc_bound[1]}); decode kernel {dec_ms:.4f} ms "
-          f"({S / dec_ms / 1e6:.3f} GB/s), plain {dec_plain_ms:.2f} ms, "
-          f"bound {dec_bound[0]:.4f} ms ({dec_bound[1]}) "
-          f"[{nb} blocks x {B} symbols, {N} lanes, prob_bits {pb}]; "
-          f"decode kernel on 1 block {dec1_ms:.4f} ms",
-          flush=True)
-
-    # K3/K4 on the BYTE and the ALIAS path, K5/K6 on the RANS64 path (the
-    # kernels line gives BYTE and RANS64 prob_bits 14), and RANS64 at
-    # prob_bits 31, where the decoder searches instead of a table lookup
-    times = {name: time_new_kernels(ops, stats, host_prep, vcfg, data_new,
-                                    data_new_dev)
-             for name, (vcfg, *_) in new_paths.items()}
-    time_new_kernels(ops, stats, host_prep,
-                     dataclasses.replace(new_paths["RANS64"][0],
-                                         prob_bits=31),
-                     data_new, data_new_dev)
-
-    kernels = [
-        {"name": "word_encode", "route": "cuda",
-         "source": "ryg_rans_tpu_torch/csrc/word_encode.cu",
-         "replaces": "ryg_rans_tpu/ops/word_tpu.py:318",
-         "launches": launches["word_encode"],
-         "max_abs_err": worst["word_encode"], "ms": enc_ms,
-         "plain_ms": enc_plain_ms, "bound_ms": enc_bound[0],
-         "bound_by": enc_bound[1], "library_ms": None},
-        {"name": "word_decode", "route": "cuda",
-         "source": "ryg_rans_tpu_torch/csrc/word_decode.cu",
-         "replaces": "ryg_rans_tpu/ops/word_tpu.py:116",
-         "launches": launches["word_decode"],
-         "max_abs_err": worst["word_decode"], "ms": dec_ms,
-         "plain_ms": dec_plain_ms, "bound_ms": dec_bound[0],
-         "bound_by": dec_bound[1], "library_ms": None},
-    ]
+    kernels = []
     for name, path, src, line, key in [
+            ("word_encode", "WORD", "word_encode.cu", "word_tpu.py:318",
+             "enc"),
+            ("word_decode", "WORD", "word_decode.cu", "word_tpu.py:116",
+             "dec"),
             ("byte_encode", "BYTE", "byte_encode.cu", "byte_tpu.py:418",
              "enc"),
             ("byte_decode", "BYTE", "byte_decode.cu", "byte_tpu.py:215",

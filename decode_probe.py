@@ -300,15 +300,16 @@ def probe_encoder(out_dir: Path, csrc: Path, _kernels, ops, stats,
                   (Variant.RANS64, 14), (Variant.RANS64, 31)]:
         cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N, block_symbols=B)
         freqs, cum = stats.build_model(data[:4 * B], pb)
-        c = chip_smoke.Codec(ops, host_prep, cfg, freqs, cum, "cuda")
-        tabs = {"kernel": c.enc_kw["table"]}
+        rec = ops.codec.codec_of(cfg)
+        *model, table = rec.enc_tables(freqs, cum, pb, "cuda")
+        tabs = {"kernel": table}
         if v == Variant.RANS64:
             tabs["hw_divide"] = torch.from_numpy(divide_table(
-                c.enc_kw["table"].cpu().numpy(), freqs)).cuda()
-        entry = "rans64_encode" if v == Variant.RANS64 else "byte_encode"
-        shapes.append((f"{v.name} pb{pb}", entry, 4,
-                       launcher(c.mod, syms4, (*c.enc_tabs, N, pb), tabs),
-                       c.encode(syms4, ref=True)))
+                table.cpu().numpy(), freqs)).cuda()
+        shapes.append((f"{v.name} pb{pb}", f"{chip_smoke.kernel_stem(cfg)}"
+                       "_encode", 4,
+                       launcher(rec.ops, syms4, (*model, N, pb), tabs),
+                       rec.ops.encode_blocks_ref(syms4, *model, N, pb)))
     rows = []
     for build in ("kernel",) + tuple(ENCODE_PATCHES):
         entries = encoders_of(build)
@@ -352,27 +353,23 @@ def probe_decoders(out_dir: Path, csrc: Path, _kernels, ops, stats,
     cfg = RansConfig(prob_bits=11, n_lanes=N, block_symbols=B)
     freqs, cum = stats.build_model(data, 11)
     syms = torch.from_numpy(data).cuda().view(8, B)
-    tabs = [torch.from_numpy(a).cuda()
-            for a in host_prep.dec_tables(freqs, cum, 11)]
-    wstream = ops.word.prep_decode(
-        ops.word.encode(cfg, syms.view(-1), freqs, cum), N, "cuda")
-
-    def word_decode(plan):
-        return ops.word.decode_blocks(*wstream, *tabs, B, 11, plan=plan)
-
-    shapes.append(("WORD pb11", "WORD", 11, 8, word_decode, syms))
+    cases = [(cfg, freqs, cum, syms)]
     for v, pb in [(Variant.BYTE, 14), (Variant.ALIAS, 16),
                   (Variant.RANS64, 14), (Variant.RANS64, 31)]:
         cfg = RansConfig(variant=v, prob_bits=pb, n_lanes=N,
                          block_symbols=B)
-        freqs, cum = stats.build_model(data[:4 * B], pb)
-        c = chip_smoke.Codec(ops, host_prep, cfg, freqs, cum, "cuda")
-        syms4 = syms[:4]
-        blocks = c.mod.encode(cfg, syms4.reshape(-1), freqs, cum)
-        stream = c.mod.prep_decode(blocks, N, "cuda")
-        shapes.append((f"{v.name} pb{pb}", v.name, pb, 4,
-                       lambda plan, c=c, stream=stream:
-                       c.decode(stream, B, plan=plan), syms4))
+        cases.append((cfg, *stats.build_model(data[:4 * B], pb), syms[:4]))
+    for cfg, freqs, cum, want in cases:
+        rec = ops.codec.codec_of(cfg)
+        pb = cfg.prob_bits
+        tables = rec.dec_tables(freqs, cum, pb, "cuda")
+        stream = rec.prep_decode(ops.codec.encode(cfg, want.reshape(-1),
+                                                  freqs, cum), N, "cuda")
+        shapes.append((f"{cfg.variant.name} pb{pb}", cfg.variant.name, pb,
+                       want.shape[0],
+                       lambda plan, rec=rec, stream=stream, tables=tables,
+                       cfg=cfg: rec.decode_blocks(stream, tables, B, cfg,
+                                                  plan=plan), want))
     rows = []
     for build in ("kernel", "barrier", "no_exchange", "no_exchange_scan",
                   "no_exchange_scan_wait"):

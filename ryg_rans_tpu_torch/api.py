@@ -1,11 +1,12 @@
 """Public one-call API: compress / decompress on the card or the host.
 
 Every entry point takes ``device="cuda"`` by default and runs the kernels
-of the container's variant there: WORD (``ops.word``), BYTE and ALIAS
-(``ops.byte``) or RANS64 (``ops.rans64``).  ``device="cpu"`` runs the
-kernels' plain PyTorch versions instead.  With no CUDA device the default
-raises, and a kernel that fails to build or launch raises.  A config
-outside the kernels' shapes raises NotImplementedError.
+of the container's variant there, through the one loop of ``ops.codec``:
+WORD (``ops.word``), BYTE and ALIAS (``ops.byte``) or RANS64
+(``ops.rans64``).  ``device="cpu"`` runs the kernels' plain PyTorch
+versions instead.  With no CUDA device the default raises, and a kernel
+that fails to build or launch raises.  A config outside the kernels'
+shapes raises NotImplementedError.
 
 ``compress``, ``decompress`` and ``decompress_block`` also take
 ``backend="native"`` (the C++ host core, ``native``, blocks on host
@@ -49,25 +50,16 @@ import numpy as np
 import torch
 
 from . import native
-from .config import RansConfig, Variant
+from .config import RansConfig
 from .models import stats
-from .ops import byte, rans64, word
+from .ops import codec
 from .ops import reference_numpy as oracle
 from .utils import container as cont
 from .utils.log import backend_choice, container_summary
 from .utils.profiling import host_bytes, span, to_device, to_host
 
-_CODECS = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
-           Variant.RANS64: rans64}
 #: The ``backend=`` values that code on the host.
 HOST_BACKENDS = ("numpy", "native")
-
-
-def _codec(cfg: RansConfig):
-    """The ops module coding ``cfg.variant``, after its config check."""
-    mod = _CODECS[cfg.variant]
-    mod.check_config(cfg)
-    return mod
 
 
 def _backend(backend) -> str | None:
@@ -107,7 +99,7 @@ def _as_u8(data) -> np.ndarray:
 
 def _block_slices(cfg: RansConfig, padded_len: int):
     off = 0
-    for size in word.block_sizes(cfg.block_symbols, padded_len):
+    for size in codec.block_sizes(cfg.block_symbols, padded_len):
         yield off, size
         off += size
 
@@ -143,7 +135,7 @@ def _encode_payloads(cfg: RansConfig, padded, freqs, cum, device,
     code its blocks on the host, native on host threads.  The blocks keep
     their order, so the words do not depend on the route."""
     if backend is None:
-        codec = _codec(cfg)
+        codec.codec_of(cfg)
         if not (isinstance(padded, torch.Tensor)
                 and padded.device.type == torch.device(device).type):
             padded = to_device(padded, device=device)
@@ -169,7 +161,7 @@ def _encode(cfg: RansConfig, t: torch.Tensor, device, backend):
         freqs, cum = _model(t, cfg.prob_bits)
     with span("rans.encode"):
         with span("rans.stage"):
-            padded = word.pad_block(t, cfg.n_lanes, freqs)
+            padded = codec.pad_block(t, cfg.n_lanes, freqs)
         payloads = _encode_payloads(cfg, padded, freqs, cum, device, backend)
     return freqs, payloads, padded.numel()
 
@@ -199,8 +191,8 @@ def _decode_payloads(cfg: RansConfig, payloads, sizes, freqs, cum,
 
     The coded blocks are decoded by the kernels on ``device`` or, with
     ``backend``, on the host.  A block that ``raw`` marks (FLAG_RAW) is
-    its stored bytes, zero-padded to its padded size."""
-    codec = None if backend else _codec(cfg)
+    its stored bytes, zero-padded to its padded size.  The kernels refuse
+    a config they do not take before anything goes to ``device``."""
     dev = torch.device("cpu") if backend else torch.device(device)
     raw = (np.zeros(len(sizes), bool) if raw is None
            else np.asarray(raw, bool))
@@ -305,7 +297,7 @@ def compress(data, cfg: RansConfig | None = None,
         if data.size == 0:
             return cont.pack(cfg, 0, np.zeros(256, np.uint32), [], None)
         if not be:
-            _codec(cfg)  # refuse the config before the data goes there
+            codec.codec_of(cfg)  # refuse the config before the upload
         _log_route(cfg, be, device, dev)
         # a host backend counts and pads a view of the host bytes
         t = torch.from_numpy(data) if be else to_device(data, device=dev)
@@ -341,17 +333,35 @@ def compress_from_device(t: torch.Tensor,
 
 
 def _decode_container(c: cont.Container, dev: torch.device,
-                      be: str | None = None) -> torch.Tensor:
-    """All blocks of an unpacked container -> flat uint8 [orig_len] on
-    ``dev``, decoded by the kernels there or, with ``be``, on the host
-    (``dev`` is then the CPU)."""
+                      be: str | None, first: int, n: int) -> torch.Tensor:
+    """Blocks [first, first + n) of an unpacked container -> their original
+    bytes, flat uint8 on ``dev``, decoded by the kernels there or, with
+    ``be``, on the host (``dev`` is then the CPU)."""
     sizes = c.block_sizes()
     if len(c.payloads) != len(sizes):
         raise ValueError("container corrupt: block count does not match "
                          "orig_len")
-    return _decode_payloads(c.cfg, c.payloads, sizes, c.freqs,
-                            stats.calc_cum_freqs(c.freqs), c.raw, dev,
-                            be)[:c.orig_len]
+    off, last = first * c.cfg.block_symbols, first + n
+    # a block of padding only (off past orig_len) holds no input bytes
+    end = max(min(off + sum(sizes[first:last]), c.orig_len), off)
+    return _decode_payloads(
+        c.cfg, c.payloads[first:last], sizes[first:last], c.freqs,
+        stats.calc_cum_freqs(c.freqs),
+        None if c.raw is None else c.raw[first:last], dev, be)[:end - off]
+
+
+def _decompress_blocks(c: cont.Container, first: int, n: int,
+                       dev: torch.device, be: str | None) -> bytes:
+    """Blocks [first, first + n) of an unpacked container -> their
+    original bytes as a new ``bytes``, filled straight from ``dev`` and
+    checked against their CRCs."""
+    dec = _decode_container(c, dev, be, first, n)
+    with span("rans.output"):
+        out, view = host_bytes(dec.numel())
+    to_host(dec, out=view)
+    with span("rans.crc"):
+        _check_crcs(c, first, n, view)
+    return out
 
 
 def _check_crcs(c: cont.Container, first: int, n: int,
@@ -378,13 +388,7 @@ def decompress(blob, device="cuda", backend: str | None = None) -> bytes:
     if c.orig_len == 0:
         return b""
     _log_route(c.cfg, be, device, dev)
-    dec = _decode_container(c, dev, be)
-    with span("rans.output"):
-        out, view = host_bytes(c.orig_len)
-    to_host(dec, out=view)
-    with span("rans.crc"):
-        _check_crcs(c, 0, len(c.block_sizes()), view)
-    return out
+    return _decompress_blocks(c, 0, len(c.payloads), dev, be)
 
 
 def decompress_to_device(blob, device="cuda") -> torch.Tensor:
@@ -401,7 +405,7 @@ def decompress_to_device(blob, device="cuda") -> torch.Tensor:
         c = cont.unpack(blob)
     if c.orig_len == 0:
         return torch.empty(0, dtype=torch.uint8, device=dev)
-    return _decode_container(c, dev)
+    return _decode_container(c, dev, None, 0, len(c.payloads))
 
 
 def decompress_block(blob, block: int, device="cuda",
@@ -413,27 +417,10 @@ def decompress_block(blob, block: int, device="cuda",
     dev = torch.device("cpu") if be else _device(device)
     with span("rans.unpack"):
         c = cont.unpack(blob)
-    cfg = c.cfg
     if not be:
-        _codec(cfg)
-    _log_route(cfg, be, device, dev)
-    sizes = c.block_sizes()
-    if len(c.payloads) != len(sizes):
-        raise ValueError("container corrupt: block count does not match "
-                         "orig_len")
-    if not 0 <= block < len(sizes):
-        raise IndexError(f"block {block} out of range [0, {len(sizes)})")
-    off = block * cfg.block_symbols
-    # a block of padding only (off past orig_len) holds no input bytes
-    end = max(min(off + sizes[block], c.orig_len), off)
-    dec = _decode_payloads(
-        cfg, c.payloads[block:block + 1], sizes[block:block + 1], c.freqs,
-        stats.calc_cum_freqs(c.freqs),
-        None if c.raw is None else c.raw[block:block + 1], dev,
-        be)[:end - off]
-    with span("rans.output"):
-        out, view = host_bytes(end - off)
-    to_host(dec, out=view)
-    with span("rans.crc"):
-        _check_crcs(c, block, 1, view)
-    return out
+        codec.codec_of(c.cfg)
+    _log_route(c.cfg, be, device, dev)
+    n_blocks = len(c.block_sizes())
+    if not 0 <= block < n_blocks:
+        raise IndexError(f"block {block} out of range [0, {n_blocks})")
+    return _decompress_blocks(c, block, 1, dev, be)

@@ -1,5 +1,6 @@
 """BYTE and ALIAS codecs on the card: the K3/K4 kernel wrappers, their plain
-PyTorch versions, and the tensor glue around them.
+PyTorch versions, and the compaction of K4's cells.  ``ops.codec`` drives
+them.
 
 Counterpart of the reference package's ``ops/byte_tpu.py``.  Both variants
 share the state machine of rans_byte.h: a u32 state, L = 2^23, and 8-bit
@@ -23,26 +24,11 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..config import RansConfig, Variant
 from ..utils.profiling import span, to_device, to_host
 from . import decode_plan, host_prep
-from .word import (check_tables, i32_as_u32, u32_as_i32, assemble_blocks,
-                   block_sizes, check_shape, groups, stack_blocks, staged)
+from .word import check_tables, i32_as_u32, staged, u32_as_i32
 
-#: Symbols coded per kernel launch at most: 4 B/symbol of dense encode
-#: cells, so a group holds at most 1 GiB of them.
-GROUP_SYMBOLS = 1 << 28
 L_BITS = 23  # rans_byte.h:50
-
-
-def check_config(cfg: RansConfig) -> None:
-    """Raise for a config this module does not code: another variant
-    (ValueError) or a shape outside the device path
-    (NotImplementedError)."""
-    if cfg.variant not in (Variant.BYTE, Variant.ALIAS):
-        raise ValueError(f"ops.byte codes BYTE and ALIAS, not "
-                         f"{cfg.variant.name}")
-    check_shape(cfg, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +248,7 @@ def decode_blocks_ref(x0: torch.Tensor, data: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Glue: compaction, stream prep, orchestration
+# Compaction
 # ---------------------------------------------------------------------------
 
 
@@ -286,74 +272,3 @@ def compact_emissions(cells: torch.Tensor, states: torch.Tensor):
     counts = k.sum(1, dtype=torch.int64)
     heads = states.contiguous().view(torch.uint8).view(nb, -1)
     return heads, body, counts
-
-
-def prep_decode(byte_blocks: list[np.ndarray], n_lanes: int, device):
-    """Per-block byte arrays [head | body] -> the decode kernel's inputs
-    (x0 int32 [nb, N], data uint8 [W], body_off int64 [nb], body_len int32
-    [nb]) on ``device``."""
-    data, heads, body_off, body_len = stack_blocks(
-        byte_blocks, 4 * n_lanes, np.uint8, device)
-    return heads.view(torch.int32), data.view(torch.uint8), body_off, \
-        body_len
-
-
-def encode(cfg: RansConfig, padded: torch.Tensor, freqs,
-           cum_freqs) -> list[np.ndarray]:
-    """Encode a flat uint8 tensor padded to a multiple of 4*n_lanes ->
-    per-block uint8 arrays [head | body] on the host."""
-    check_config(cfg)
-    N, pb = cfg.n_lanes, cfg.prob_bits
-    if padded.numel() % (4 * N):
-        raise ValueError("input must be padded to a multiple of 4*n_lanes")
-    alias = cfg.variant == Variant.ALIAS
-    with span("rans.tables"):
-        freq, start, remap, table = to_device(
-            *host_prep.enc_tables(freqs, cum_freqs),
-            host_prep.alias_remap(freqs, cum_freqs, pb) if alias else None,
-            host_prep.byte_enc_table(freqs, cum_freqs, pb, alias),
-            device=padded.device)
-    out: list[np.ndarray] = []
-    pos = 0
-    for _, nb, size in groups(block_sizes(cfg.block_symbols,
-                                          padded.numel()), GROUP_SYMBOLS):
-        syms = padded[pos:pos + nb * size].view(nb, size)
-        pos += nb * size
-        with span("rans.launch"):
-            cells, states = encode_blocks(syms, freq, start, remap, N, pb,
-                                          table)
-        with span("rans.compact"):
-            heads, body, counts = compact_emissions(cells, states)
-            del cells
-        with span("rans.assemble"):
-            out += assemble_blocks(*to_host(heads, body, counts))
-    return out
-
-
-def dec_tables(cfg: RansConfig, freqs, cum_freqs, device) -> tuple:
-    """The decode tables of ``cfg.variant`` on ``device``."""
-    make = (host_prep.alias_dec_tables if cfg.variant == Variant.ALIAS
-            else host_prep.dec_tables)
-    return to_device(*make(freqs, cum_freqs, cfg.prob_bits), device=device)
-
-
-def decode(cfg: RansConfig, byte_blocks: list[np.ndarray], sizes: list[int],
-           freqs, cum_freqs, device) -> torch.Tensor:
-    """Decode per-block byte arrays (padded symbol counts ``sizes``, all
-    equal but the last) -> flat uint8 tensor on ``device``."""
-    check_config(cfg)
-    N = cfg.n_lanes
-    device = torch.device(device)
-    with span("rans.tables"):
-        tables = dec_tables(cfg, freqs, cum_freqs, device)
-    alias = cfg.variant == Variant.ALIAS
-    parts = []
-    for b0, nb, size in groups(sizes, GROUP_SYMBOLS):
-        with span("rans.stage"):
-            stream = prep_decode(byte_blocks[b0:b0 + nb], N, device)
-        with span("rans.launch"):
-            parts.append(decode_blocks(*stream, tables, size,
-                                       cfg.prob_bits, alias).view(-1))
-    if not parts:
-        return torch.empty(0, dtype=torch.uint8, device=device)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)

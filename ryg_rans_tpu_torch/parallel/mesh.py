@@ -23,9 +23,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import api
-from ..config import RansConfig, Variant
+from ..config import RansConfig
 from ..models import stats
-from ..ops import byte, host_prep, rans64, word
+from ..ops import codec
 from .multihost import block_range_of, comm_device
 
 DATA_AXIS = "data"
@@ -77,62 +77,15 @@ def build_model_sharded(mesh: DeviceMesh, data, prob_bits: int):
     return stats.build_model_from_counts(counts.cpu().numpy(), prob_bits)
 
 
-class _Kernels:
-    """The encode and decode kernels of ``cfg.variant``, with the model's
-    tables on ``device``."""
-
-    def __init__(self, cfg: RansConfig, freqs, cum, device):
-        self.codec = api._codec(cfg)
-        self.cfg = cfg
-        pb = cfg.prob_bits
-        f, st = (torch.from_numpy(a).to(device)
-                 for a in host_prep.enc_tables(freqs, cum))
-        if cfg.variant == Variant.WORD:
-            self.enc_args = (f, st)
-            table = host_prep.word_enc_table(freqs, cum, pb)
-            self.dec_args = tuple(torch.from_numpy(a).to(device) for a in
-                                  host_prep.dec_tables(freqs, cum, pb))
-        elif cfg.variant == Variant.RANS64:
-            self.enc_args = (f, st)
-            table = host_prep.rans64_enc_table(freqs, cum, pb)
-            self.dec_args = rans64.dec_tables(cfg, freqs, cum, device)
-        else:
-            alias = cfg.variant == Variant.ALIAS
-            remap = (torch.from_numpy(host_prep.alias_remap(freqs, cum, pb))
-                     .to(device) if alias else None)
-            self.enc_args = (f, st, remap)
-            table = host_prep.byte_enc_table(freqs, cum, pb, alias)
-            self.dec_args = (byte.dec_tables(cfg, freqs, cum, device),)
-        self.table = torch.from_numpy(table).to(device)
-
-    def encode(self, syms: torch.Tensor):
-        return self.codec.encode_blocks(syms, *self.enc_args,
-                                        self.cfg.n_lanes, self.cfg.prob_bits,
-                                        table=self.table)
-
-    def decode(self, heads: torch.Tensor, body: torch.Tensor,
-               counts: torch.Tensor, n_symbols: int) -> torch.Tensor:
-        """Decode a launch group straight from its compaction: the heads
-        are the final states' bits, each block's body follows the last."""
-        x0 = heads.view(torch.int64 if self.cfg.variant == Variant.RANS64
-                        else torch.int32)
-        stream = (x0, body, torch.cumsum(counts, 0) - counts,
-                  counts.to(torch.int32))
-        extra = ((self.cfg.variant == Variant.ALIAS,)
-                 if self.codec is byte else ())
-        return self.codec.decode_blocks(*stream, *self.dec_args, n_symbols,
-                                        self.cfg.prob_bits, *extra)
-
-
 def _local_groups(mesh: DeviceMesh, cfg: RansConfig, n_padded: int):
     """This process's first block and its launch groups (first block
     relative to it, block count, block size) over ``n_padded`` symbols."""
     if n_padded % (4 * cfg.n_lanes):
         raise ValueError("data must be padded to a multiple of 4*n_lanes")
-    sizes = word.block_sizes(cfg.block_symbols, n_padded)
+    sizes = codec.block_sizes(cfg.block_symbols, n_padded)
     lo, hi = local_range(mesh, len(sizes))
-    return lo, list(word.groups(sizes[lo:hi],
-                                api._codec(cfg).GROUP_SYMBOLS))
+    return lo, list(codec.groups(sizes[lo:hi],
+                                 codec.codec_of(cfg).group_symbols))
 
 
 def encode_blocks_sharded(mesh: DeviceMesh, cfg: RansConfig, data, freqs,
@@ -141,14 +94,16 @@ def encode_blocks_sharded(mesh: DeviceMesh, cfg: RansConfig, data, freqs,
     to a multiple of 4*n_lanes, the same on every process) on its device:
     one (cells, states) pair per launch group."""
     dev = mesh_device(mesh)
-    kern = _Kernels(cfg, freqs, cum, dev)
+    rec = codec.codec_of(cfg)
+    tables = rec.enc_tables(freqs, cum, cfg.prob_bits, dev)
     t = torch.as_tensor(data).reshape(-1)
     lo, groups = _local_groups(mesh, cfg, t.numel())
     pos = lo * cfg.block_symbols
     local = t[pos:pos + sum(nb * size for _, nb, size in groups)].to(dev)
     out, pos = [], 0
     for _, nb, size in groups:
-        out.append(kern.encode(local[pos:pos + nb * size].view(nb, size)))
+        syms = local[pos:pos + nb * size].view(nb, size)
+        out.append(rec.encode_blocks(syms, tables, cfg))
         pos += nb * size
     return out
 
@@ -156,9 +111,8 @@ def encode_blocks_sharded(mesh: DeviceMesh, cfg: RansConfig, data, freqs,
 def compact_sharded(cfg: RansConfig, encoded):
     """Per-process compaction of ``encode_blocks_sharded``'s groups, on
     their device: one (heads, body, counts) triple per launch group."""
-    codec = api._codec(cfg)
-    return [codec.compact_emissions(cells, states)
-            for cells, states in encoded]
+    compact = codec.codec_of(cfg).compact
+    return [compact(cells, states) for cells, states in encoded]
 
 
 def decode_blocks_sharded(mesh: DeviceMesh, cfg: RansConfig, compacted,
@@ -166,16 +120,21 @@ def decode_blocks_sharded(mesh: DeviceMesh, cfg: RansConfig, compacted,
                           cum) -> torch.Tensor:
     """Decode this process's blocks from their compaction (the groups
     ``compact_sharded`` returns for an input of ``n_symbols_padded``) ->
-    their symbols, one flat uint8 tensor on its device."""
+    their symbols, one flat uint8 tensor on its device.  Each group decodes
+    straight from its compaction: the heads are the final states' bits,
+    and each block's body follows the last."""
     dev = mesh_device(mesh)
-    kern = _Kernels(cfg, freqs, cum, dev)
+    rec = codec.codec_of(cfg)
+    tables = rec.dec_tables(freqs, cum, cfg.prob_bits, dev)
     _, groups = _local_groups(mesh, cfg, n_symbols_padded)
     if len(groups) != len(compacted):
         raise ValueError("compacted groups do not match this process's "
                          "blocks")
-    parts = [kern.decode(heads, body, counts, size).view(-1)
-             for (heads, body, counts), (_, _, size) in zip(compacted,
-                                                             groups)]
+    parts = []
+    for (heads, body, counts), (_, _, size) in zip(compacted, groups):
+        stream = (heads.view(rec.state_dtype), body,
+                  torch.cumsum(counts, 0) - counts, counts.to(torch.int32))
+        parts.append(rec.decode_blocks(stream, tables, size, cfg).view(-1))
     if not parts:
         return torch.empty(0, dtype=torch.uint8, device=dev)
     return torch.cat(parts)
@@ -206,5 +165,5 @@ def local_slice(mesh: DeviceMesh, cfg: RansConfig, data) -> np.ndarray:
     ``roundtrip_step`` gives back on it)."""
     data = np.asarray(data).reshape(-1)
     B = cfg.block_symbols
-    lo, hi = local_range(mesh, len(word.block_sizes(B, data.size)))
+    lo, hi = local_range(mesh, len(codec.block_sizes(B, data.size)))
     return data[lo * B:min(hi * B, data.size)]

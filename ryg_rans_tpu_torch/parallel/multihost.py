@@ -27,7 +27,7 @@ import torch.distributed as dist
 
 from .. import api
 from ..config import RansConfig
-from ..ops import word
+from ..ops import codec
 
 #: Word dtypes of a payload, by item size.
 _WORD_DTYPES = {1: np.uint8, 2: np.uint16, 4: np.uint32}
@@ -130,12 +130,12 @@ def compress_multihost(data: np.ndarray, cfg: RansConfig, freqs, cum,
     this process coding its contiguous block slice through the kernels on
     ``device``; returns the full ordered per-block payload list on every
     process."""
-    codec = api._codec(cfg)
+    codec.codec_of(cfg)
     dev = api._device(device)
     data = np.ascontiguousarray(data, np.uint8).reshape(-1)
     _check_padded(cfg, data.size)
     B = cfg.block_symbols
-    n_blocks = len(word.block_sizes(B, data.size))
+    n_blocks = len(codec.block_sizes(B, data.size))
     lo, hi = local_block_range(n_blocks, group)
     if hi > lo:
         local = torch.from_numpy(data[lo * B:min(hi * B, data.size)])
@@ -153,11 +153,11 @@ def decompress_multihost(payloads: list[np.ndarray], cfg: RansConfig,
     """Decode with per-process block ownership on ``device``; returns the
     full symbol array (``n_symbols_padded``) on every process, gathered in
     block order."""
-    codec = api._codec(cfg)
+    codec.codec_of(cfg)
     dev = api._device(device)
     _check_padded(cfg, n_symbols_padded)
     B = cfg.block_symbols
-    sizes = word.block_sizes(B, n_symbols_padded)
+    sizes = codec.block_sizes(B, n_symbols_padded)
     if len(payloads) != len(sizes):
         raise ValueError("payloads do not match n_symbols_padded")
     n_blocks = len(sizes)

@@ -27,6 +27,7 @@ import torch
 from .. import api
 from ..config import RansConfig
 from ..models import stats
+from ..ops import codec
 from . import container as cont
 from .profiling import to_host
 
@@ -61,7 +62,7 @@ def _refuse_or_log(cfg: RansConfig, dev, device, be) -> None:
     """Without a host backend, the kernels' config check; then the log
     line of where the call codes."""
     if not be:
-        api._codec(cfg)
+        codec.codec_of(cfg)
     api._log_route(cfg, be, device, dev)
 
 

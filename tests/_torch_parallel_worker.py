@@ -66,7 +66,7 @@ def run(rank: int, world: int, store: str, out_dir: str,
         device_type: str) -> None:
     from ryg_rans_tpu_torch.config import RansConfig, Variant
     from ryg_rans_tpu_torch.models import stats
-    from ryg_rans_tpu_torch.ops import word
+    from ryg_rans_tpu_torch.ops import codec
     from ryg_rans_tpu_torch.parallel import mesh as pmesh
     from ryg_rans_tpu_torch.parallel import multihost
 
@@ -103,8 +103,8 @@ def run(rank: int, world: int, store: str, out_dir: str,
 
         data = multihost_input(world)
         cfg = RansConfig(prob_bits=12, n_lanes=LANES, block_symbols=BLOCK)
-        padded = word.pad_block(torch.from_numpy(data), LANES,
-                                stats.build_model(data, 12)[0]).numpy()
+        padded = codec.pad_block(torch.from_numpy(data), LANES,
+                                 stats.build_model(data, 12)[0]).numpy()
         freqs, cum = pmesh.build_model_sharded(mesh, padded[:data.size], 12)
         payloads = multihost.compress_multihost(padded, cfg, freqs, cum,
                                                 device=dev)

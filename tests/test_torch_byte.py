@@ -1,8 +1,9 @@
 """ryg_rans_tpu_torch.ops.byte: the plain K3/K4 versions through the
-encode/decode orchestration, against the reference package's NumPy oracle
-per block and its Pallas BYTE/ALIAS encoder (interpret mode), by exact
-equality.  The interpret-mode calls are slow (ALIAS encode takes seconds
-even at 128 lanes), so a few cases carry them and the oracle the rest."""
+encode/decode loop of ryg_rans_tpu_torch.ops.codec, against the reference
+package's NumPy oracle per block and its Pallas BYTE/ALIAS encoder
+(interpret mode), by exact equality.  The interpret-mode calls are slow
+(ALIAS encode takes seconds even at 128 lanes), so a few cases carry them
+and the oracle the rest."""
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from ryg_rans_tpu.models import stats as jstats
 from ryg_rans_tpu.ops import byte_tpu
 from ryg_rans_tpu.ops import reference_numpy as oracle
 from ryg_rans_tpu_torch.config import RansConfig, Variant
-from ryg_rans_tpu_torch.ops import byte, host_prep, word
+from ryg_rans_tpu_torch.ops import byte, codec, host_prep
 
 B, A = Variant.BYTE, Variant.ALIAS
 # (variant, prob_bits, n_lanes, block_symbols, input bytes, corpus, seed):
@@ -52,8 +53,8 @@ def setup(case):
 
 
 def port_encode(cfg, data, freqs, cum):
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
-    return byte.encode(cfg, padded, freqs, cum), padded
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
+    return codec.encode(cfg, padded, freqs, cum), padded
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -68,8 +69,8 @@ def test_encode_matches_oracle(case):
         ref = oracle.encode(jcfg, padded_np[b * Bs:(b + 1) * Bs], freqs, cum)
         assert np.array_equal(mine, ref[0])
     # the port decodes its own blocks back to the padded input
-    sizes = word.block_sizes(Bs, padded.numel())
-    dec = byte.decode(cfg, blocks, sizes, freqs, cum, "cpu")
+    sizes = codec.block_sizes(Bs, padded.numel())
+    dec = codec.decode(cfg, blocks, sizes, freqs, cum, "cpu")
     assert torch.equal(dec, padded)
 
 
@@ -89,13 +90,13 @@ def test_encode_matches_pallas(case):
 def test_decode_reads_oracle_stream(case):
     """Format interop: the plain decoder consumes oracle-encoded blocks."""
     cfg, jcfg, data, freqs, cum = setup(case)
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes,
-                            freqs).numpy()
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes,
+                             freqs).numpy()
     Bs = cfg.block_symbols
-    sizes = word.block_sizes(Bs, padded.size)
+    sizes = codec.block_sizes(Bs, padded.size)
     streams = [oracle.encode(jcfg, padded[b * Bs:b * Bs + s], freqs, cum)[0]
                for b, s in enumerate(sizes)]
-    dec = byte.decode(cfg, streams, sizes, freqs, cum, "cpu")
+    dec = codec.decode(cfg, streams, sizes, freqs, cum, "cpu")
     assert np.array_equal(dec.numpy(), padded)
 
 
@@ -117,11 +118,12 @@ def test_wrappers_take_the_plain_version_on_cpu(variant):
     assert cells.dtype == torch.int32 and states.dtype == torch.int32
 
     heads, body, counts = byte.compact_emissions(cells, states)
-    blocks = word.assemble_blocks(heads.numpy(), body.numpy(),
-                                  counts.numpy())
+    blocks = codec.assemble_blocks(heads.numpy(), body.numpy(),
+                                   counts.numpy())
     cfg = RansConfig(variant=variant, prob_bits=pb, n_lanes=N)
-    tables = byte.dec_tables(cfg, freqs, cum, "cpu")
-    stream = byte.prep_decode(blocks, N, "cpu")
+    rec = codec.codec_of(cfg)
+    tables = rec.dec_tables(freqs, cum, pb, "cpu")
+    stream = rec.prep_decode(blocks, N, "cpu")
     out = byte.decode_blocks(*stream, tables, syms.shape[1], pb,
                              variant == A)
     assert torch.equal(out, byte.decode_blocks_ref(
@@ -153,12 +155,12 @@ def test_grouped_encode_equals_one_launch(monkeypatch):
     data = CORPORA["skewed"](5 * (1 << 11) + 300, seed=7)
     freqs, cum = jstats.build_model(data, 12)
     whole, padded = port_encode(cfg, data, freqs, cum)
-    monkeypatch.setattr(byte, "GROUP_SYMBOLS", 2 << 11)
-    parts = byte.encode(cfg, padded, freqs, cum)
+    monkeypatch.setattr(codec, "GROUP_BYTES", (2 << 11) * 4)
+    parts = codec.encode(cfg, padded, freqs, cum)
     assert all(np.array_equal(a, b) for a, b in zip(whole, parts,
                                                     strict=True))
-    sizes = word.block_sizes(cfg.block_symbols, padded.numel())
-    assert torch.equal(byte.decode(cfg, parts, sizes, freqs, cum, "cpu"),
+    sizes = codec.block_sizes(cfg.block_symbols, padded.numel())
+    assert torch.equal(codec.decode(cfg, parts, sizes, freqs, cum, "cpu"),
                        padded)
 
 
@@ -172,8 +174,8 @@ def test_truncated_body_decodes_without_fault(variant):
     freqs, cum = jstats.build_model(data, 12)
     blocks, _ = port_encode(cfg, data, freqs, cum)
     for cut in (blocks[0].size - 1, 4 * 128):
-        out = byte.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
-                          "cpu")
+        out = codec.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
+                           "cpu")
         assert out.shape == (1 << 12,)
     with pytest.raises(ValueError, match="corrupt"):
-        byte.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")
+        codec.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")

@@ -22,7 +22,7 @@ import torch
 from _torch_corpora import CORPORA, dominant, random_bytes, skewed
 import ryg_rans_tpu_torch as rt
 from ryg_rans_tpu_torch.models import stats
-from ryg_rans_tpu_torch.ops import byte, host_prep, rans64, word
+from ryg_rans_tpu_torch.ops import byte, codec, host_prep, rans64, word
 
 pytestmark = pytest.mark.cuda
 
@@ -48,10 +48,10 @@ def _kernel_vs_plain(dev, data, N, pb, B):
     assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
 
     cfg = rt.RansConfig(prob_bits=pb, n_lanes=N, block_symbols=B)
-    blocks = word.encode(cfg, syms.view(-1), freqs, cum)
+    blocks = codec.encode(cfg, syms.view(-1), freqs, cum)
     c2s, fd, cd = (torch.from_numpy(a).to(dev)
                    for a in host_prep.dec_tables(freqs, cum, pb))
-    stream = word.prep_decode(blocks, N, dev)
+    stream = codec.codec_of(cfg).prep_decode(blocks, N, dev)
     before = word.decode_blocks.launches
     out = word.decode_blocks(*stream, c2s, fd, cd, B, pb)
     assert word.decode_blocks.launches == before + 1
@@ -88,7 +88,8 @@ def test_truncated_body_kernel_matches_plain(dev):
     N, pb, B = 1024, 12, 1 << 15
     blocks, _, tables = _kernel_vs_plain(dev, skewed(B, seed=3), N, pb, B)
     for cut in (blocks[0].size - 7, 2 * N + 5, 2 * N):
-        stream = word.prep_decode([blocks[0][:cut]], N, dev)
+        stream = codec.CODECS[rt.Variant.WORD].prep_decode(
+            [blocks[0][:cut]], N, dev)
         out = word.decode_blocks(*stream, *tables, B, pb)
         out_r = word.decode_blocks_ref(*stream, *tables, B, pb)
         torch.cuda.synchronize()
@@ -112,9 +113,10 @@ def _byte_kernel_vs_plain(dev, data, variant, N, pb, B):
 
     cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
                         block_symbols=B)
-    blocks = byte.encode(cfg, syms.view(-1), freqs, cum)
-    tables = byte.dec_tables(cfg, freqs, cum, dev)
-    stream = byte.prep_decode(blocks, N, dev)
+    blocks = codec.encode(cfg, syms.view(-1), freqs, cum)
+    rec = codec.codec_of(cfg)
+    tables = rec.dec_tables(freqs, cum, pb, dev)
+    stream = rec.prep_decode(blocks, N, dev)
     before = byte.decode_blocks.launches
     out = byte.decode_blocks(*stream, tables, B, pb, alias)
     assert byte.decode_blocks.launches == before + 1
@@ -138,9 +140,10 @@ def _rans64_kernel_vs_plain(dev, data, N, pb, B):
 
     cfg = rt.RansConfig(variant=rt.Variant.RANS64, prob_bits=pb, n_lanes=N,
                         block_symbols=B)
-    blocks = rans64.encode(cfg, syms.view(-1), freqs, cum)
-    tables = rans64.dec_tables(cfg, freqs, cum, dev)
-    stream = rans64.prep_decode(blocks, N, dev)
+    blocks = codec.encode(cfg, syms.view(-1), freqs, cum)
+    rec = codec.codec_of(cfg)
+    tables = rec.dec_tables(freqs, cum, pb, dev)
+    stream = rec.prep_decode(blocks, N, dev)
     before = rans64.decode_blocks.launches
     out = rans64.decode_blocks(*stream, *tables, B, pb)
     assert rans64.decode_blocks.launches == before + 1
@@ -209,7 +212,8 @@ def test_new_kernels_truncated_body_match_plain(dev, variant):
         head, mod = 4 * N, byte
         args = (tables,)
     for cut in (blocks[0].size - 7, head + 5, head):
-        stream = mod.prep_decode([blocks[0][:cut]], N, dev)
+        stream = codec.CODECS[variant].prep_decode([blocks[0][:cut]], N,
+                                                   dev)
         tail = (B, pb) if mod is rans64 else (B, pb,
                                               variant == rt.Variant.ALIAS)
         out = mod.decode_blocks(*stream, *args, *tail)
@@ -300,47 +304,29 @@ def test_raw_blocks_on_card(dev):
 # ring
 
 def _module(variant):
-    return {rt.Variant.WORD: word, rt.Variant.RANS64: rans64}.get(variant,
-                                                                  byte)
+    return codec.CODECS[variant].ops
 
 
 def _encode_blocks(dev, data, variant, N, pb, B):
     """Container blocks of ``data`` and the decode tables, on the card."""
     cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=N,
                         block_symbols=B)
-    mod = _module(variant)
     freqs, cum = stats.build_model(data, pb)
     syms = torch.from_numpy(data).to(dev)
-    if variant == rt.Variant.WORD:
-        tables = tuple(torch.from_numpy(a).to(dev)
-                       for a in host_prep.dec_tables(freqs, cum, pb))
-    else:
-        tables = mod.dec_tables(cfg, freqs, cum, dev)
-    return mod.encode(cfg, syms, freqs, cum), tables
+    tables = codec.codec_of(cfg).dec_tables(freqs, cum, pb, dev)
+    return codec.encode(cfg, syms, freqs, cum), tables
 
 
 def _decode_vs_plain(dev, variant, blocks, tables, N, pb, B, plan=None):
     """Decode ``blocks`` as one launch group with the kernel and with its
     plain version; assert they agree; return the kernel's output."""
-    if variant == rt.Variant.WORD:
-        stream = word.prep_decode(blocks, N, dev)
-        before = word.decode_blocks.launches
-        out = word.decode_blocks(*stream, *tables, B, pb, plan=plan)
-        assert word.decode_blocks.launches == before + 1
-        out_r = word.decode_blocks_ref(*stream, *tables, B, pb)
-    elif variant == rt.Variant.RANS64:
-        stream = rans64.prep_decode(blocks, N, dev)
-        before = rans64.decode_blocks.launches
-        out = rans64.decode_blocks(*stream, *tables, B, pb, plan=plan)
-        assert rans64.decode_blocks.launches == before + 1
-        out_r = rans64.decode_blocks_ref(*stream, *tables, B, pb)
-    else:
-        alias = variant == rt.Variant.ALIAS
-        stream = byte.prep_decode(blocks, N, dev)
-        before = byte.decode_blocks.launches
-        out = byte.decode_blocks(*stream, tables, B, pb, alias, plan=plan)
-        assert byte.decode_blocks.launches == before + 1
-        out_r = byte.decode_blocks_ref(*stream, tables, B, pb, alias)
+    rec = codec.CODECS[variant]
+    stream = rec.prep_decode(blocks, N, dev)
+    args = rec.decode_args(tables, B, pb)
+    before = rec.ops.decode_blocks.launches
+    out = rec.ops.decode_blocks(*stream, *args, plan=plan)
+    assert rec.ops.decode_blocks.launches == before + 1
+    out_r = rec.ops.decode_blocks_ref(*stream, *args)
     torch.cuda.synchronize()
     assert torch.equal(out, out_r)
     return out
@@ -641,7 +627,7 @@ def test_two_rank_gloo_group_on_one_card(dev, tmp_path):
     cfg = rt.RansConfig(prob_bits=12, n_lanes=worker.LANES,
                         block_symbols=worker.BLOCK)
     freqs, cum = stats.build_model(data, 12)
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
     # the single-process payloads, before the raw-block rule
     want = [p[0] for p in api._encode_payloads(cfg, padded, freqs, cum,
                                                 dev)]

@@ -19,7 +19,7 @@ from ryg_rans_tpu.parallel import multihost as ref_multihost
 from ryg_rans_tpu_torch import api
 from ryg_rans_tpu_torch.config import RansConfig, Variant
 from ryg_rans_tpu_torch.models import stats
-from ryg_rans_tpu_torch.ops import word
+from ryg_rans_tpu_torch.ops import codec
 from ryg_rans_tpu_torch.parallel import mesh as pmesh
 from ryg_rans_tpu_torch.parallel import multihost
 
@@ -74,7 +74,7 @@ def test_single_process_multihost_matches_reference(tail):
     cfg = RansConfig(prob_bits=12, n_lanes=128, block_symbols=2048)
     data = worker.skewed(4 * 2048 + tail, 3)
     freqs, cum = stats.build_model(data, 12)
-    padded = word.pad_block(torch.from_numpy(data), 128, freqs).numpy()
+    padded = codec.pad_block(torch.from_numpy(data), 128, freqs).numpy()
     payloads = multihost.compress_multihost(padded, cfg, freqs, cum,
                                             device="cpu")
     assert len(payloads) == 4 + (tail > 0)
@@ -116,7 +116,7 @@ def test_four_rank_gloo_group_matches_reference(tmp_path):
             assert np.array_equal(r[f"dry{i}_freqs"], freqs)
             for g in range(int(r[f"dry{i}_groups"])):
                 heads = r[f"dry{i}_g{g}_heads"]
-                blocks += word.assemble_blocks(
+                blocks += codec.assemble_blocks(
                     heads, r[f"dry{i}_g{g}_body"], r[f"dry{i}_g{g}_counts"])
         n_blocks = data.size // worker.BLOCK
         assert len(blocks) == n_blocks  # ragged: world + 1 over world

@@ -1,8 +1,9 @@
 """ryg_rans_tpu_torch.ops.rans64: the plain K5/K6 versions through the
-encode/decode orchestration, against the reference package's NumPy oracle
-per block and its Pallas RANS64 encoder (interpret mode), by exact
-equality, over prob_bits 9-31: the cum2sym path up to 16, the binary
-search above, and the one-symbol model whose encode threshold is 2^63."""
+encode/decode loop of ryg_rans_tpu_torch.ops.codec, against the reference
+package's NumPy oracle per block and its Pallas RANS64 encoder (interpret
+mode), by exact equality, over prob_bits 9-31: the cum2sym path up to 16,
+the binary search above, and the one-symbol model whose encode threshold
+is 2^63."""
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from ryg_rans_tpu.models import stats as jstats
 from ryg_rans_tpu.ops import rans64_tpu
 from ryg_rans_tpu.ops import reference_numpy as oracle
 from ryg_rans_tpu_torch.config import RansConfig, Variant
-from ryg_rans_tpu_torch.ops import host_prep, rans64, word
+from ryg_rans_tpu_torch.ops import codec, host_prep, rans64
 
 # (prob_bits, n_lanes, block_symbols, input bytes, corpus, seed): every
 # input spans two full blocks and a tail block.
@@ -46,8 +47,8 @@ def setup(case):
 
 
 def port_encode(cfg, data, freqs, cum):
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
-    return rans64.encode(cfg, padded, freqs, cum), padded
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
+    return codec.encode(cfg, padded, freqs, cum), padded
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -61,8 +62,8 @@ def test_encode_matches_oracle(case):
         assert mine.dtype == np.uint32
         ref = oracle.encode(jcfg, padded_np[b * Bs:(b + 1) * Bs], freqs, cum)
         assert np.array_equal(mine, ref[0])
-    sizes = word.block_sizes(Bs, padded.numel())
-    dec = rans64.decode(cfg, blocks, sizes, freqs, cum, "cpu")
+    sizes = codec.block_sizes(Bs, padded.numel())
+    dec = codec.decode(cfg, blocks, sizes, freqs, cum, "cpu")
     assert torch.equal(dec, padded)
 
 
@@ -82,13 +83,13 @@ def test_encode_matches_pallas(case):
 def test_decode_reads_oracle_stream(case):
     """Format interop: the plain decoder consumes oracle-encoded blocks."""
     cfg, jcfg, data, freqs, cum = setup(case)
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes,
-                            freqs).numpy()
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes,
+                             freqs).numpy()
     Bs = cfg.block_symbols
-    sizes = word.block_sizes(Bs, padded.size)
+    sizes = codec.block_sizes(Bs, padded.size)
     streams = [oracle.encode(jcfg, padded[b * Bs:b * Bs + s], freqs, cum)[0]
                for b, s in enumerate(sizes)]
-    dec = rans64.decode(cfg, streams, sizes, freqs, cum, "cpu")
+    dec = codec.decode(cfg, streams, sizes, freqs, cum, "cpu")
     assert np.array_equal(dec.numpy(), padded)
 
 
@@ -107,14 +108,15 @@ def test_wrappers_take_the_plain_version_on_cpu(pb):
     assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
     assert cells.dtype == torch.int64 and states.dtype == torch.int64
 
-    heads, body, counts = rans64.compact_emissions(cells, states)
-    blocks = word.assemble_blocks(heads.numpy().view(np.uint32),
-                                  body.numpy().view(np.uint32),
-                                  counts.numpy())
+    heads, body, counts = codec.compact_words(cells, states)
+    blocks = codec.assemble_blocks(heads.numpy().view(np.uint32),
+                                   body.numpy().view(np.uint32),
+                                   counts.numpy())
     cfg = RansConfig(variant=Variant.RANS64, prob_bits=pb, n_lanes=N)
-    tables = rans64.dec_tables(cfg, freqs, cum, "cpu")
+    rec = codec.codec_of(cfg)
+    tables = rec.dec_tables(freqs, cum, pb, "cpu")
     assert (tables[0] is None) == (pb > 16)
-    stream = rans64.prep_decode(blocks, N, "cpu")
+    stream = rec.prep_decode(blocks, N, "cpu")
     out = rans64.decode_blocks(*stream, *tables, syms.shape[1], pb)
     assert torch.equal(out, rans64.decode_blocks_ref(
         *stream, *tables, syms.shape[1], pb))
@@ -130,7 +132,7 @@ def test_compaction_keeps_stream_order():
                           [one, 0, 0, one | 7]], dtype=torch.int64)
     states = torch.tensor([[0x0000000200000001, 0x7FFFFFFF80000000],
                            [1 << 31, 3]], dtype=torch.int64)
-    heads, body, counts = rans64.compact_emissions(cells, states)
+    heads, body, counts = codec.compact_words(cells, states)
     assert body.numpy().view(np.uint32).tolist() == [5, 0xFFFFFFFF, 0, 7]
     assert counts.tolist() == [2, 2]
     assert heads.numpy().view(np.uint32).tolist() == [
@@ -144,12 +146,12 @@ def test_grouped_encode_equals_one_launch(monkeypatch):
     data = CORPORA["skewed"](5 * (1 << 11) + 300, seed=7)
     freqs, cum = jstats.build_model(data, 20)
     whole, padded = port_encode(cfg, data, freqs, cum)
-    monkeypatch.setattr(rans64, "GROUP_SYMBOLS", 2 << 11)
-    parts = rans64.encode(cfg, padded, freqs, cum)
+    monkeypatch.setattr(codec, "GROUP_BYTES", (2 << 11) * 8)
+    parts = codec.encode(cfg, padded, freqs, cum)
     assert all(np.array_equal(a, b) for a, b in zip(whole, parts,
                                                     strict=True))
-    sizes = word.block_sizes(cfg.block_symbols, padded.numel())
-    assert torch.equal(rans64.decode(cfg, parts, sizes, freqs, cum, "cpu"),
+    sizes = codec.block_sizes(cfg.block_symbols, padded.numel())
+    assert torch.equal(codec.decode(cfg, parts, sizes, freqs, cum, "cpu"),
                        padded)
 
 
@@ -162,8 +164,8 @@ def test_truncated_body_decodes_without_fault():
     freqs, cum = jstats.build_model(data, 14)
     blocks, _ = port_encode(cfg, data, freqs, cum)
     for cut in (blocks[0].size - 1, 2 * 128):
-        out = rans64.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
-                            "cpu")
+        out = codec.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
+                           "cpu")
         assert out.shape == (1 << 12,)
     with pytest.raises(ValueError, match="corrupt"):
-        rans64.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")
+        codec.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")

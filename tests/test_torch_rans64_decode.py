@@ -1,4 +1,4 @@
-"""The plain K5 version through ryg_rans_tpu_torch.ops.rans64.decode against
+"""The plain K5 version through ryg_rans_tpu_torch.ops.codec.decode against
 the reference package's Pallas RANS64 decoder (interpret mode), symbol for
 symbol, on the cases of test_torch_rans64 that carry the Pallas checks
 (kept in a file of their own so that each file stays short)."""
@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from ryg_rans_tpu.ops import rans64_tpu
-from ryg_rans_tpu_torch.ops import rans64, word
+from ryg_rans_tpu_torch.ops import codec
 from test_torch_rans64 import CASES, IDS, PALLAS, port_encode, setup
 
 
@@ -16,8 +16,8 @@ from test_torch_rans64 import CASES, IDS, PALLAS, port_encode, setup
 def test_decode_matches_pallas(case):
     cfg, jcfg, data, freqs, cum = setup(case)
     blocks, padded = port_encode(cfg, data, freqs, cum)
-    sizes = word.block_sizes(cfg.block_symbols, padded.numel())
-    mine = rans64.decode(cfg, blocks, sizes, freqs, cum, "cpu").numpy()
+    sizes = codec.block_sizes(cfg.block_symbols, padded.numel())
+    mine = codec.decode(cfg, blocks, sizes, freqs, cum, "cpu").numpy()
     theirs = rans64_tpu.decode(jcfg, blocks, padded.numel(), freqs, cum,
                                interpret=True)
     assert mine.dtype == theirs.dtype == np.uint8

@@ -1,6 +1,9 @@
 """ryg_rans_tpu_torch.ops.word: the plain K1/K2 versions through the
-encode/decode orchestration, against the reference package's Pallas WORD
-kernels (interpret mode) and its NumPy oracle, by exact equality."""
+encode/decode loop of ryg_rans_tpu_torch.ops.codec, against the reference
+package's Pallas WORD kernels (interpret mode) and its NumPy oracle, by
+exact equality; and the codec's per-variant records."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -13,7 +16,8 @@ from ryg_rans_tpu.models import stats as jstats
 from ryg_rans_tpu.ops import reference_numpy as oracle
 from ryg_rans_tpu.ops import word_tpu
 from ryg_rans_tpu_torch.config import RansConfig, Variant
-from ryg_rans_tpu_torch.ops import byte, host_prep, rans64, word
+from ryg_rans_tpu_torch.ops import byte, codec, host_prep, rans64, word
+from ryg_rans_tpu_torch.utils.container import word_dtype
 
 # (prob_bits, n_lanes, block_symbols, input bytes, corpus): every input
 # spans two full blocks and a tail block.
@@ -42,8 +46,8 @@ def _setup(case):
 
 
 def _port_encode(cfg, data, freqs, cum):
-    padded = word.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
-    return word.encode(cfg, padded, freqs, cum), padded
+    padded = codec.pad_block(torch.from_numpy(data), cfg.n_lanes, freqs)
+    return codec.encode(cfg, padded, freqs, cum), padded
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -62,8 +66,8 @@ def test_encode_matches_pallas_and_oracle(case):
         ref = oracle.encode(jcfg, padded_np[b * B:(b + 1) * B], freqs, cum)
         assert np.array_equal(mine, ref[0])
     # the port decodes its own blocks back to the padded input
-    sizes = word.block_sizes(B, padded.numel())
-    dec = word.decode(cfg, blocks, sizes, freqs, cum, "cpu")
+    sizes = codec.block_sizes(B, padded.numel())
+    dec = codec.decode(cfg, blocks, sizes, freqs, cum, "cpu")
     assert torch.equal(dec, padded)
 
 
@@ -78,7 +82,7 @@ def test_decode_reads_oracle_stream(pb):
     freqs, cum = jstats.build_model(data, pb)
     stream = oracle.encode(jcfg, data, freqs, cum)[0]
     cfg = RansConfig(prob_bits=pb, n_lanes=N, block_symbols=B)
-    dec = word.decode(cfg, [stream], [B], freqs, cum, "cpu")
+    dec = codec.decode(cfg, [stream], [B], freqs, cum, "cpu")
     assert np.array_equal(dec.numpy(), data)
 
 
@@ -96,7 +100,7 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert torch.equal(cells, cells_r) and torch.equal(states, states_r)
     assert cells.dtype == torch.int32 and states.dtype == torch.int32
 
-    heads, body, counts = word.compact_emissions(cells, states)
+    heads, body, counts = codec.compact_words(cells, states)
     blocks = []
     hn, bn = heads.numpy().view(np.uint16), body.numpy().view(np.uint16)
     ends = np.cumsum(counts.numpy())
@@ -104,7 +108,7 @@ def test_wrappers_take_the_plain_version_on_cpu():
         blocks.append(np.concatenate([hn[b], bn[ends[b] - counts[b]:ends[b]]]))
     c2s, fd, cd = (torch.from_numpy(a)
                    for a in host_prep.dec_tables(freqs, cum, pb))
-    stream = word.prep_decode(blocks, N, "cpu")
+    stream = codec.CODECS[Variant.WORD].prep_decode(blocks, N, "cpu")
     out = word.decode_blocks(*stream, c2s, fd, cd, syms.shape[1], pb)
     assert torch.equal(out, word.decode_blocks_ref(*stream, c2s, fd, cd,
                                                    syms.shape[1], pb))
@@ -120,7 +124,7 @@ def test_compaction_keeps_stream_order():
                          dtype=torch.int32)
     states = torch.tensor([[0x00020001, -1], [0x7FFF8000, 0x10000]],
                           dtype=torch.int32)
-    heads, body, counts = word.compact_emissions(cells, states)
+    heads, body, counts = codec.compact_words(cells, states)
     assert body.numpy().view(np.uint16).tolist() == [5, 0xFFFF, 1, 2, 3]
     assert counts.tolist() == [3, 2]
     assert heads.numpy().view(np.uint16).tolist() == [
@@ -131,20 +135,23 @@ def test_pad_block_uses_first_argmax():
     freqs = np.zeros(256, np.uint32)
     freqs[[3, 9]] = 100
     t = torch.arange(10, dtype=torch.uint8)
-    out = word.pad_block(t, 128, freqs)
+    out = codec.pad_block(t, 128, freqs)
     assert out.numel() == 512 and torch.equal(out[:10], t)
     assert bool((out[10:] == 3).all())
     full = torch.zeros(1024, dtype=torch.uint8)
-    assert word.pad_block(full, 128, freqs) is full
+    assert codec.pad_block(full, 128, freqs) is full
 
 
 def test_groups_bound_symbols_per_launch(monkeypatch):
-    monkeypatch.setattr(word, "GROUP_SYMBOLS", 3 * 1024)
+    monkeypatch.setattr(codec, "GROUP_BYTES", 3 * 1024 * 4)
+    cap = codec.CODECS[Variant.WORD].group_symbols
+    assert cap == 3 * 1024
     sizes = [1024] * 7 + [512]
-    assert list(word.groups(sizes)) == [(0, 3, 1024), (3, 3, 1024),
-                                        (6, 1, 1024), (7, 1, 512)]
-    assert list(word.groups([8192, 4096])) == [(0, 1, 8192), (1, 1, 4096)]
-    assert list(word.groups([])) == []
+    assert list(codec.groups(sizes, cap)) == [(0, 3, 1024), (3, 3, 1024),
+                                              (6, 1, 1024), (7, 1, 512)]
+    assert list(codec.groups([8192, 4096], cap)) == [(0, 1, 8192),
+                                                     (1, 1, 4096)]
+    assert list(codec.groups([], cap)) == []
 
 
 def test_grouped_encode_equals_one_launch(monkeypatch):
@@ -153,12 +160,12 @@ def test_grouped_encode_equals_one_launch(monkeypatch):
     data = CORPORA["skewed"](5 * (1 << 11) + 300, seed=7)
     freqs, cum = jstats.build_model(data, 12)
     whole, padded = _port_encode(cfg, data, freqs, cum)
-    monkeypatch.setattr(word, "GROUP_SYMBOLS", 2 << 11)
-    parts = word.encode(cfg, padded, freqs, cum)
+    monkeypatch.setattr(codec, "GROUP_BYTES", (2 << 11) * 4)
+    parts = codec.encode(cfg, padded, freqs, cum)
     assert all(np.array_equal(a, b) for a, b in zip(whole, parts,
                                                     strict=True))
-    sizes = word.block_sizes(cfg.block_symbols, padded.numel())
-    assert torch.equal(word.decode(cfg, parts, sizes, freqs, cum, "cpu"),
+    sizes = codec.block_sizes(cfg.block_symbols, padded.numel())
+    assert torch.equal(codec.decode(cfg, parts, sizes, freqs, cum, "cpu"),
                        padded)
 
 
@@ -170,11 +177,11 @@ def test_truncated_body_decodes_without_fault():
     freqs, cum = jstats.build_model(data, 12)
     blocks, _ = _port_encode(cfg, data, freqs, cum)
     for cut in (blocks[0].size - 1, 2 * 128):
-        out = word.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
-                          "cpu")
+        out = codec.decode(cfg, [blocks[0][:cut]], [1 << 12], freqs, cum,
+                           "cpu")
         assert out.shape == (1 << 12,)
     with pytest.raises(ValueError, match="corrupt"):
-        word.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")
+        codec.decode(cfg, [blocks[0][:100]], [1 << 12], freqs, cum, "cpu")
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -189,23 +196,72 @@ def test_truncated_body_decodes_without_fault():
     dict(n_lanes=32768, block_symbols=1 << 17),
 ])
 def test_configs_outside_the_slice_raise(kwargs):
-    """Each variant's module refuses the shapes no kernel takes, naming the
+    """Each variant's record refuses the shapes no kernel takes, naming the
     host backends that code them."""
     cfg = RansConfig(**kwargs)
-    codec = {Variant.WORD: word, Variant.BYTE: byte, Variant.ALIAS: byte,
-             Variant.RANS64: rans64}[cfg.variant]
     with pytest.raises(NotImplementedError,
                        match='backend="native" or backend="numpy"'):
-        codec.check_config(cfg)
+        codec.codec_of(cfg)
 
 
-@pytest.mark.parametrize("variant", [Variant.BYTE, Variant.ALIAS,
-                                     Variant.RANS64])
-def test_word_refuses_other_variants(variant):
-    cfg = RansConfig(variant=variant, prob_bits=12)
-    with pytest.raises(ValueError, match="codes WORD"):
-        word.check_config(cfg)
-    word_cfg = RansConfig(prob_bits=12)
-    other = rans64 if variant == Variant.BYTE else byte
-    with pytest.raises(ValueError, match="codes"):
-        other.check_config(word_cfg)
+@pytest.mark.parametrize("variant,ops,max_pb,cap,head", [
+    (Variant.WORD, word, 15, 1 << 28, 2),
+    (Variant.BYTE, byte, 16, 1 << 28, 4),
+    (Variant.ALIAS, byte, 16, 1 << 28, 4),
+    (Variant.RANS64, rans64, 31, 1 << 27, 2)],
+    ids=["WORD", "BYTE", "ALIAS", "RANS64"])
+def test_codec_of_each_variant(variant, ops, max_pb, cap, head):
+    """``codec_of`` gives the variant's record: its wrappers' module, a
+    group cap of 1 GiB of dense cells, head words a lane whose bytes are
+    a lane state's, the container's word type, and its highest
+    prob_bits; one more raises."""
+    cfg = RansConfig(variant=variant, prob_bits=max_pb, n_lanes=128)
+    rec = codec.codec_of(cfg)
+    assert rec is codec.CODECS[variant] and rec.variant == variant
+    assert rec.ops is ops and rec.max_prob_bits == max_pb
+    assert rec.group_symbols == cap == codec.GROUP_BYTES // rec.cell_bytes
+    assert rec.head_words == head
+    assert rec.word_dtype == word_dtype(variant)
+    assert head * np.dtype(rec.word_dtype).itemsize == \
+        rec.state_dtype.itemsize
+    # RansConfig refuses BYTE's, ALIAS's and RANS64's next prob_bits
+    # itself, so the field is set past that check to reach the record's
+    over = RansConfig(variant=variant, prob_bits=max_pb, n_lanes=128)
+    object.__setattr__(over, "prob_bits", max_pb + 1)
+    with pytest.raises(NotImplementedError, match=f"9-{max_pb}"):
+        codec.codec_of(over)
+
+
+#: sha256 (first 16 hex digits) of the heads and body that the per-variant
+#: compactions of ``ops.word`` and ``ops.rans64`` gave before they became
+#: ``codec.compact_words``, with their dtypes, shapes and counts, on the
+#: plain encoders' cells of the input below.
+COMPACTED = {
+    Variant.WORD: (12, torch.int16, 3326, [1100, 1116, 1110],
+                   "c7f070f597506b43", "5c0fd9196f826bb8"),
+    Variant.RANS64: (20, torch.int32, 1500, [499, 507, 494],
+                     "3d04b2e3952d66e8", "e184f5e2231f40ed"),
+}
+
+
+@pytest.mark.parametrize("variant", list(COMPACTED),
+                         ids=lambda v: v.name)
+def test_shared_compaction_matches_the_per_variant_ones(variant):
+    """WORD's and RANS64's one compaction gives the heads, body and counts
+    the two per-variant functions gave, byte for byte."""
+    pb, dtype, total, counts_want, heads_sha, body_sha = COMPACTED[variant]
+    N = 256
+    data = CORPORA["skewed"](3 * 4 * N * 4, seed=1)
+    freqs, cum = jstats.build_model(data, pb)
+    f, st = (torch.from_numpy(a) for a in host_prep.enc_tables(freqs, cum))
+    ops = codec.CODECS[variant].ops
+    cells, states = ops.encode_blocks_ref(torch.from_numpy(data).view(3, -1),
+                                          f, st, N, pb)
+    heads, body, counts = codec.compact_words(cells, states)
+
+    def sha(t):
+        return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+    assert heads.dtype == body.dtype == dtype and counts.dtype == torch.int64
+    assert heads.shape == (3, 2 * N) and body.shape == (total,)
+    assert counts.tolist() == counts_want
+    assert (sha(heads), sha(body)) == (heads_sha, body_sha)
