@@ -33,8 +33,11 @@ runs: with none, it costs one check (0.4-0.6 us on an H100 machine's
 
 A payload byte is copied once into a container and not at all out of one:
 ``utils.container.unpack`` hands out views of the blob, read-only for a
-``bytes`` blob, and every path here concatenates them into a new array
-first, so none reaches PyTorch as a read-only array.  A decoded byte is
+``bytes`` blob.  The kernels' decode uploads a launch group's span of the
+blob itself where its blocks lie back to back there (``ops.codec``'s
+``stack_blocks``); every other path here joins the payloads into a new
+array first.  ``to_device`` copies a read-only array even to the CPU, so
+no tensor a call returns aliases the blob.  A decoded byte is
 copied once on its way out: ``decompress`` and ``decompress_block`` make
 their ``bytes`` first (``utils.profiling.host_bytes``) and ``to_host``
 fills it, checked in place by the CRCs.

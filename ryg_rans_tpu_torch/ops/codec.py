@@ -11,8 +11,9 @@ groups of equal-size blocks:
 * encode: the tables (``rans.tables``); per group the kernel
   (``rans.launch``), the compaction (``rans.compact``), and one fetch of
   the group's words, split per block (``rans.assemble``);
-* decode: the tables (``rans.tables``); per group the words stacked and
-  uploaded (``rans.stage``), and the kernel (``rans.launch``).
+* decode: the tables (``rans.tables``); per group the words uploaded,
+  as the blob's own span where the group's blocks lie back to back in it,
+  else joined first (``rans.stage``), and the kernel (``rans.launch``).
 
 The variant-neutral block glue is here too.  A block's stream is [head:
 the lanes' final states] ++ [body: renorm words in stream order]
@@ -41,7 +42,7 @@ GROUP_BYTES = 1 << 30
 MAX_GROUP_BLOCKS = 4096
 #: The type a decode wrapper's stream buffer holds a word's bits in, by
 #: the word's bytes.
-_WIRE = {1: np.uint8, 2: np.int16, 4: np.int32}
+_WIRE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 #: The signed type of a cell's low half, by the cell's type.
 _LOW_HALF = {torch.int32: torch.int16, torch.int64: torch.int32}
 
@@ -98,24 +99,67 @@ def groups(sizes: list[int], group_symbols: int):
         b += n
 
 
+def _owner(a):
+    """The object whose memory array ``a`` views: down its bases, and
+    through a memoryview to the object it was taken from."""
+    while True:
+        if isinstance(a, np.ndarray) and a.base is not None:
+            a = a.base
+        elif isinstance(a, memoryview):
+            a = a.obj
+        else:
+            return a
+
+
+def run_of(arrays: list[np.ndarray]) -> np.ndarray | None:
+    """The bytes of ``arrays`` as one read-only uint8 slice of the object
+    that holds them, where each is a C-contiguous view of that one object
+    and starts where the one before it ends, as ``container.unpack``'s
+    payloads of consecutive coded blocks do; else None.  Memory that
+    merely touches is not a run: the arrays must share their owner."""
+    owner = _owner(arrays[0])
+    try:
+        whole = np.frombuffer(owner, np.uint8)
+    except (TypeError, ValueError, BufferError):
+        return None
+    base = whole.ctypes.data
+    start = end = arrays[0].ctypes.data - base
+    for a in arrays:
+        if (not a.flags.c_contiguous or _owner(a) is not owner
+                or a.ctypes.data - base != end):
+            return None
+        end += a.nbytes
+    if start < 0 or end > whole.size:
+        return None
+    run = whole[start:end]
+    run.flags.writeable = False
+    return run
+
+
 def stack_blocks(blocks: list[np.ndarray], n_head: int, dtype, device):
     """Per-block word arrays [head of ``n_head`` words | body] -> (words
     [W], heads [nb, n_head], body_off int64 [nb], body_len int32 [nb]) on
     ``device``: one copy of the words to the device, where the heads are
-    gathered.  ``dtype`` is the numpy word type; the tensors hold its bits
-    as the decode wrappers take them: bytes as uint8, wider words in the
-    signed type of their width.  A head's words are little-endian pieces
-    of a lane state, so ``heads.view`` of the state's type gives the
-    states."""
+    gathered.  The copy's source is the span of the object the blocks lie
+    in back to back (:func:`run_of`; ``unpack``'s blob), else the blocks
+    joined on the host.  ``dtype`` is the numpy word type.  The bytes land
+    in a new buffer on ``device`` (the CPU's too: the span is read-only,
+    which ``to_device`` copies), viewed there as the decode wrappers take
+    them: bytes as uint8, wider words in the signed type of their width.
+    A head's words are little-endian pieces of a lane state, so
+    ``heads.view`` of the state's type gives the states."""
     blocks = [np.asarray(w, dtype) for w in blocks]
     lens = np.array([w.size for w in blocks], np.int64)
     if np.any(lens < n_head) or np.any(lens - n_head >= 1 << 31):
         raise ValueError("container corrupt: a block's word count does "
                          "not fit its lane states")
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-    words, offsets, body_len = to_device(
-        np.concatenate(blocks).view(_WIRE[np.dtype(dtype).itemsize]), offs,
-        (lens - n_head).astype(np.int32), device=device)
+    host = run_of(blocks)
+    if host is None:
+        host = np.concatenate(blocks).view(np.uint8)
+    raw, offsets, body_len = to_device(
+        host, offs, (lens - n_head).astype(np.int32), device=device)
+    words = raw.view(_WIRE[np.dtype(dtype).itemsize])
     heads = words[offsets.view(-1, 1) + torch.arange(n_head, device=device)]
     return words, heads, offsets + n_head, body_len
 

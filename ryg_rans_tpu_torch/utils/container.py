@@ -36,8 +36,10 @@ out: ``pack`` joins the payload arrays themselves into the result, ``crc32``
 reads its array in place, and the payloads ``unpack`` returns are views of
 the blob it was given (read-only for a ``bytes`` blob; a ``bytearray``
 blob changed later changes them, and cannot be resized while they live).
-A consumer that needs its own or a writable array copies it, as every
-caller in the package does by concatenating the payloads first.
+A consumer that needs its own or a writable array copies it: the device
+decode uploads the blob's span where a launch group's blocks lie back to
+back in it (``ops.codec.stack_blocks``) and joins them otherwise, and the
+package's other callers join the payloads first.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ import functools
 import os
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
@@ -67,12 +68,18 @@ SPANS = {
     "rans.pinned": "one tensor's fetch staged through the pinned ring",
     "rans.tables": "a codec's host tables and their upload",
     "rans.stage": "encode: the padding; decode: a launch group's words "
-                  "stacked, uploaded and their heads gathered",
+                  "uploaded (the blob's span where they lie back to back, "
+                  "else joined first) and their heads gathered",
     "rans.launch": "a kernel wrapper's call: checks, allocation, launch",
     "rans.compact": "a launch group's emitted words selected on the device",
     "rans.assemble": "a launch group's words fetched and split per block",
 }
 _OFF = contextlib.nullcontext()
+#: The start of the warning PyTorch gives on reading a read-only array.
+_NOT_WRITABLE = "The given NumPy array is not writable"
+#: Held while ``to_device`` silences that warning: ``catch_warnings``
+#: swaps the process's filters, so two threads must not overlap in it.
+_QUIET = threading.Lock()
 
 
 def span(name: str):
@@ -101,11 +108,22 @@ def _copies(fn, items, device: torch.device, name: str):
 def to_device(*arrays, device):
     """Host arrays (NumPy or CPU tensors; None passes through) -> tensors
     on ``device``, one blocking copy each under one ``rans.put``.  One
-    array gives one tensor, several a tuple."""
+    array gives one tensor, several a tuple.  A read-only NumPy array (a
+    view of a ``bytes``) is copied even to the CPU: PyTorch has no
+    read-only tensors, so the tensor it is read through lives only for the
+    copy, and PyTorch's warning about that one is silenced."""
     device = torch.device(device)
-    return _copies(lambda a: None if a is None
-                   else torch.as_tensor(a).to(device),
-                   arrays, device, "rans.put")
+
+    def put(a):
+        if a is None:
+            return None
+        if isinstance(a, np.ndarray) and not a.flags.writeable:
+            with _QUIET, warnings.catch_warnings():
+                warnings.filterwarnings("ignore", _NOT_WRITABLE, UserWarning)
+                src = torch.as_tensor(a)
+            return src.to(device, copy=True)
+        return torch.as_tensor(a).to(device)
+    return _copies(put, arrays, device, "rans.put")
 
 
 #: Bytes of one slot of the pinned ring that ``to_host`` stages through

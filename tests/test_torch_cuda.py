@@ -947,3 +947,68 @@ def test_decompress_records_one_pinned_span_per_large_fetch(dev, size,
              if e.device_type == torch.autograd.DeviceType.CPU]
     assert names.count("rans.pinned") == pinned
     assert names.count("rans.fetch") == 1
+
+
+# --- stack_blocks: a launch group's words straight from the blob ----------
+
+STAGE_CASES = [(rt.Variant.WORD, 11, 12), (rt.Variant.BYTE, 14, 5),
+               (rt.Variant.ALIAS, 14, 5), (rt.Variant.RANS64, 14, 5)]
+
+
+def _stage_blob(variant, pb, n_blocks):
+    """``n_blocks`` blocks of 2^18 (the last 100,003 bytes), every one
+    coded: the full blocks make one launch group, the tail another."""
+    cfg = rt.RansConfig(variant=variant, prob_bits=pb, n_lanes=1024,
+                        block_symbols=1 << 18)
+    data = skewed(((n_blocks - 1) << 18) + 100_003, seed=n_blocks + pb)
+    blob = rt.compress(data, cfg)
+    return cfg, data, blob
+
+
+@pytest.mark.parametrize("variant,pb,n_blocks", STAGE_CASES,
+                         ids=[v.name for v, _, _ in STAGE_CASES])
+def test_decode_groups_upload_the_blobs_span(dev, monkeypatch, variant, pb,
+                                             n_blocks):
+    """Every entry point of the card decodes a ``bytes`` blob byte-equal,
+    each launch group uploading the blob's own span (no host join), and
+    returns nothing that aliases the blob."""
+    cfg, data, blob = _stage_blob(variant, pb, n_blocks)
+    assert rt.utils.container.unpack(blob).raw is None
+    runs, run_of = [], codec.run_of
+
+    def spy(arrays):
+        runs.append(run_of(arrays))
+        return runs[-1]
+    monkeypatch.setattr(codec, "run_of", spy)
+    whole = np.frombuffer(blob, np.uint8)
+    B = cfg.block_symbols
+    assert rt.decompress(blob) == data.tobytes()
+    t = rt.decompress_to_device(blob)
+    assert t.device.type == dev.type
+    assert torch.equal(t.cpu(), torch.from_numpy(data))
+    for b in (n_blocks // 2, n_blocks - 1):
+        assert rt.decompress_block(blob, b) == data[b * B:(b + 1) * B] \
+            .tobytes()
+    # two groups for decompress and decompress_to_device, one a block
+    assert len(runs) == 6
+    assert all(r is not None and np.shares_memory(r, whole) for r in runs)
+
+
+def test_traced_decompress_keeps_one_wait_and_put_per_group(dev):
+    """A traced ``decompress`` of the 12-block WORD container: the tables'
+    wait and upload, one wait and one upload per launch group (the full
+    blocks, the tail), and the fetch's wait."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, data, blob = _stage_blob(rt.Variant.WORD, 11, 12)
+    rt.decompress(blob)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = rt.decompress(blob)
+    assert out == data.tobytes()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    assert names.count("rans.stage") == 2
+    assert names.count("rans.wait") == 4
+    assert names.count("rans.put") == 3
+    assert names.count("rans.fetch") == 1
